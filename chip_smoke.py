@@ -5,24 +5,42 @@
 
 1. Prints the card's name and power limit as ``nvidia-smi`` gives them.
 2. Builds the Hopper kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` (into ``build/repro_torch_kernels/``) and holds each kernel
-   against its plain PyTorch version on the card, bit for bit, over
-   payload dtypes, overflow, empty bins, ragged tiles and two
-   rows-per-block values.
-3. Runs the deployment round trip through the port's public entry points
-   (``repro_torch.shuffle.api``): one second of the paper's offered load,
-   3,240,000 records of 1 KiB (512 bf16) over 216 partitions
-   (``SimConfig``: 12 nodes x 2 instances x partitions_factor 9), packed
-   into blobs and read back, plain and int8-compressed. Capacity is the
-   largest partition rounded up to 128, so no record is dropped; the
-   plain round trip must return every record bit for bit, the codec
-   round trip must equal its plain version bit for bit and lie within
-   half a quantization step of each record.
-4. Prints one ``kernels`` line: per kernel its launches in that round
-   trip, its median time over 20 runs with CUDA events, its bytes and the
-   bound they set at 3.35 TB/s, the plain version's time and a
-   ``torch.index_select`` gather over the same rows as yardstick.
-5. Ends with ``{"ok": true, "device": {...}}``.
+   ``nvcc``, one process per source, all started together (into
+   ``build/repro_torch_kernels/``).
+3. Blob data plane: holds each blob kernel against its plain PyTorch
+   version on the card, bit for bit, over payload dtypes, overflow,
+   empty bins, ragged tiles and two rows-per-block values; then runs the
+   deployment round trip through ``repro_torch.shuffle.api``: one second
+   of the paper's offered load, 3,240,000 records of 1 KiB (512 bf16)
+   over 216 partitions (``SimConfig``: 12 nodes x 2 instances x
+   partitions_factor 9). The plain round trip must return every record
+   bit for bit, the codec round trip must equal its plain version bit for
+   bit and lie within half a quantization step of each record. Its
+   tensors are freed before the model loads.
+4. Model kernels: flash attention against its plain version at head dims
+   64, 80, 128 and 256, GQA, MQA, non-causal and ragged (2e-2 in bf16);
+   the SSD chunk against its plain version at N 64 and 128, two groups,
+   chunks of 64 and 256 and ragged lengths (1e-4 atol and rtol, all four
+   outputs), and ``ssd_scan_op`` against ``ssd_chunked``.
+5. Zamba2-2.7B at full width (54 layers, d 2560, parameters drawn on the
+   card from the seed): ``make_prefill_step`` on 4 requests of 4,096
+   tokens must launch flash attention 9 times and the SSD chunk 54 times
+   and give finite logits; the q, k, v of the first shared-block call and
+   the SSD inputs of the first Mamba2 layer are captured and each kernel
+   is held against its plain version on them. Then decode as
+   ``repro_torch.launch.serve`` does it: 4 prompts of 16 tokens and 48
+   new tokens through ``make_decode_step``; the decode logits over the
+   prompt must match the prefill logits of the same prompt (f32: 5e-3;
+   bf16: a tenth of the largest logit). Prints prefill and decode
+   tokens/s and peak memory.
+6. Prints one ``kernels`` line: per kernel its launches on its main path
+   (the round trip, or one prefill), its median time over repeated runs
+   with CUDA events at that path's shapes, its bytes and operations and
+   the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
+   time, and a PyTorch call as yardstick (``torch.index_select`` for the
+   blob kernels, ``scaled_dot_product_attention`` for flash, none for the
+   SSD chunk).
+7. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -50,7 +68,18 @@ CAPACITY_ROUND = 128
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
 TIMED_RUNS = 20
+
+# Zamba2-2.7B serving: 4 requests of its 4,096-token context; decode as
+# repro_torch.launch.serve runs it
+ARCH = "zamba2-2.7b"
+PREFILL_BATCH, PREFILL_LEN = 4, 4096
+PROMPT_LEN, NEW_TOKENS = 16, 48
+FLASH_TOL = 2e-2              # bf16 output, probabilities rounded to bf16
+SSD_TOL = 1e-4                # atol and rtol, f32 outputs
+GAP_TOL_F32 = 5e-3            # prefill vs decode logits, f32 compute
+GAP_TOL_BF16 = 0.1            # ... bf16 compute, times the largest |logit|
 
 
 def emit(obj) -> None:
@@ -202,9 +231,9 @@ def kernel_phases(seed: int, rows_per_block) -> None:
           "rows_per_block": list(rows_per_block), "cases": n, "ok": True})
 
 
-def deployment(seed: int) -> dict:
-    """The round trip at the paper's deployment size; returns the kernels
-    line."""
+def deployment(seed: int) -> list:
+    """The round trip at the paper's deployment size; returns its rows of
+    the kernels line. Its tensors are freed when it returns."""
     from repro_torch.kernels.blob_codec import kernel as codec_kernel
     from repro_torch.kernels.blob_codec.ref import (compress_pack_ref,
                                                     unpack_decompress_ref)
@@ -344,7 +373,296 @@ def deployment(seed: int) -> dict:
     # the timed launches rewrote the outputs; they must still be right
     torch.cuda.synchronize()
     check(same_bits(back, x), "outputs unchanged by the timed launches")
-    return {"kernels": rows}
+    return rows
+
+
+# (B, S, H, KVH, D, causal): head dims 64, 80 (Zamba2), 128 and 256
+# (gemma-2b's MQA), GQA, MQA, non-causal and a ragged length of 200
+FLASH_CASES = [
+    (2, 256, 8, 8, 64, True),
+    (2, 256, 8, 8, 80, True),
+    (1, 256, 8, 2, 80, True),
+    (1, 256, 8, 1, 128, True),
+    (1, 200, 8, 8, 80, True),
+    (2, 256, 8, 8, 80, False),
+    (1, 384, 8, 1, 256, True),
+    (1, 200, 8, 2, 128, False),
+]
+# (b, S, H, P, G, N, chunk, dtype): Zamba2's N 64 and mamba2-130m's 128,
+# two groups, chunks of 64 and 256, ragged lengths
+SSD_CASES = [
+    (2, 512, 8, 64, 1, 64, 256, torch.bfloat16),
+    (2, 512, 8, 64, 2, 128, 256, torch.bfloat16),
+    (1, 300, 8, 64, 2, 64, 64, torch.float32),
+    (2, 1000, 4, 64, 1, 128, 256, torch.float32),
+]
+
+
+def ssd_inputs(gen, b, S, H, P, G, N, dtype):
+    """x, dt, A, B, C as a Mamba2 layer makes them: dt a softplus, A = -1
+    (A_log initialised to 0), B and C at N**-0.25 so C.B^T has unit
+    scale."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(b, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, S, H) - 1.0)
+    A = -torch.ones(H, device="cuda")
+    B = (randn(b, S, G, N) * N ** -0.25).to(dtype)
+    C = (randn(b, S, G, N) * N ** -0.25).to(dtype)
+    return x, dt, A, B, C
+
+
+def ssd_worst(got, want) -> float:
+    """Raise unless every output is within SSD_TOL (atol and rtol);
+    return the largest absolute difference."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(g.dtype == torch.float32 and g.shape == w.shape, "ssd output shape")
+        check(bool(torch.isfinite(g).all()), "ssd outputs finite")
+        torch.testing.assert_close(g, w, atol=SSD_TOL, rtol=SSD_TOL)
+        worst = max(worst, float((g - w).abs().max()))
+    return worst
+
+
+def model_kernel_phases(seed: int) -> None:
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunked, ssd_scan_op
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flash_err = 0.0
+    for B, S, H, KVH, D, causal in FLASH_CASES:
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, S, KVH, D), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((B, S, KVH, D), generator=gen, device="cuda").bfloat16()
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = flash_ref(q, k, v, causal=causal)
+        err = float((got.float() - want.float()).abs().max())
+        check(got.dtype == q.dtype and got.shape == q.shape and err <= FLASH_TOL,
+              f"flash B={B} S={S} H={H} KVH={KVH} D={D} causal={causal}: {err}")
+        flash_err = max(flash_err, err)
+    ssd_err = 0.0
+    for b, S, H, P, G, N, chunk, dtype in SSD_CASES:
+        x, dt, A, Bm, Cm = ssd_inputs(gen, b, S, H, P, G, N, dtype)
+        nc = S // chunk    # the whole chunks of a ragged length
+        chunk_args = tuple(t[:, :nc * chunk].reshape(b, nc, chunk, *t.shape[2:]).contiguous()
+                           for t in (x, dt, Bm, Cm))
+        chunk_args = chunk_args[:2] + (A,) + chunk_args[2:]
+        ssd_err = max(ssd_err, ssd_worst(ssd_chunk_cuda(*chunk_args),
+                                         ssd_chunk_ref(*chunk_args)))
+        y, st = ssd_scan_op(x, dt, A, Bm, Cm, chunk=chunk)      # ragged S: padded
+        y_want, st_want = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+        outs = (st,) if dtype == torch.bfloat16 else (y, st)    # y is bf16 then
+        wants = (st_want,) if dtype == torch.bfloat16 else (y_want, st_want)
+        ssd_err = max(ssd_err, ssd_worst(outs, wants))
+    torch.cuda.synchronize()
+    emit({"phase": "model_kernel_checks", "flash_cases": len(FLASH_CASES),
+          "flash_tolerance": FLASH_TOL, "flash_max_abs_err": flash_err,
+          "ssd_cases": len(SSD_CASES), "ssd_tolerance": SSD_TOL,
+          "ssd_max_abs_err": ssd_err, "ok": True})
+
+
+def bound(flops: float, nbytes: float):
+    op_ms = flops / BF16_OPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def profile_prefill(prefill, params, tokens) -> dict:
+    """One more prefill under ``torch.profiler``: the device time by
+    kernel, and the share of the wall time the device was idle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    return {"phase": "zamba2_prefill_profile", "wall_s": wall_s, "device_busy_s": busy_s,
+            "device_idle_share": 1.0 - busy_s / wall_s, "kernel_names": len(kernels),
+            "top": [{"name": e.key[:90], "calls": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+def zamba2(seed: int) -> list:
+    """Zamba2-2.7B prefill and decode at full width; returns the rows of
+    the kernels line for flash attention and the SSD chunk."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.blob_codec import kernel as codec_kernel
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import ServeConfig, make_prefill_step
+
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(lm.LM(cfg, device="cuda"), gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg, ServeConfig())
+    kernels = {k.symbol: k for k in (
+        pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
+        codec_kernel.UNPACK_DECOMPRESS, flash_kernel.FLASH, ssd_kernel.SSD_CHUNK)}
+
+    # the main path, once, counting launches and capturing the first
+    # flash and SSD-chunk inputs
+    captured = {}
+
+    def capturing(name, fn):
+        def wrapper(*args, **kwargs):
+            captured.setdefault(name, args)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    originals = (flash_ops.flash_attention_cuda, ssd_ops.ssd_chunk_cuda)
+    flash_ops.flash_attention_cuda = capturing("flash", originals[0])
+    ssd_ops.ssd_chunk_cuda = capturing("ssd", originals[1])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+    finally:
+        flash_ops.flash_attention_cuda, ssd_ops.ssd_chunk_cuda = originals
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_inv = cfg.num_layers // cfg.hybrid.shared_block_every
+    check(launches[flash_kernel.FLASH.symbol] == n_inv,
+          f"flash launched {n_inv} times in one prefill: {launches}")
+    check(launches[ssd_kernel.SSD_CHUNK.symbol] == cfg.num_layers,
+          f"SSD chunk launched {cfg.num_layers} times in one prefill: {launches}")
+    check(all(n == 0 for s, n in launches.items()
+              if s not in (flash_kernel.FLASH.symbol, ssd_kernel.SSD_CHUNK.symbol)),
+          f"no other kernel in the prefill: {launches}")
+    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
+          f"logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits finite")
+    logit_max = float(logits.float().abs().max())
+    del logits
+    prefill_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        del out
+    prefill_s = min(prefill_s)
+    profile = profile_prefill(prefill, params, tokens)
+
+    # each kernel against its plain version on the captured inputs
+    q, k, v = captured["flash"]
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    flash_out = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
+
+    def flash_plain():  # one batch row at a time bounds the S x S scores
+        return torch.cat([flash_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True)
+                          for i in range(B)])
+
+    flash_err = float((flash_out.float() - flash_plain().float()).abs().max())
+    check(flash_err <= FLASH_TOL, f"flash at the captured shape: {flash_err}")
+    ssd_args = captured["ssd"]
+    ssd_out = ssd_kernel.ssd_chunk_cuda(*ssd_args)
+    ssd_err = ssd_worst(ssd_out, ssd_chunk_ref(*ssd_args))
+    torch.cuda.synchronize()
+
+    # decode as repro_torch.launch.serve does it, against prefill of the
+    # same prompts, in the compute dtype and in f32
+    prompts = tokens[:, :PROMPT_LEN].contiguous()
+    want = prefill(params, {"tokens": prompts}).float()
+    dec = generate(cfg, params, prompts, NEW_TOKENS)
+    check(bool(torch.isfinite(dec["logits"]).all()), "decode logits finite")
+    gap = float((dec["logits"][:, :PROMPT_LEN].float() - want).abs().max())
+    want_max = float(want.abs().max())
+    check(gap <= GAP_TOL_BF16 * want_max,
+          f"bf16 prefill vs decode logits: gap {gap}, largest logit {want_max}")
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    want32 = make_prefill_step(cfg32, ServeConfig())(params, {"tokens": prompts})
+    dec32 = generate(cfg32, params, prompts, 1)
+    gap32 = float((dec32["logits"] - want32).abs().max())
+    check(gap32 <= GAP_TOL_F32, f"f32 prefill vs decode logits: gap {gap32}")
+    steps = dec["logits"].shape[1]
+    emit({"phase": "zamba2_serve", "arch": ARCH, "params": n_params,
+          "param_init_s": init_s, "prefill_batch": PREFILL_BATCH,
+          "prefill_len": PREFILL_LEN, "launches": launches,
+          "prefill_first_s": first_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+          "prefill_peak_memory_gb": peak_gb, "prefill_logit_max_abs": logit_max,
+          "flash_captured_max_abs_err": flash_err, "ssd_captured_max_abs_err": ssd_err,
+          "decode_batch": PREFILL_BATCH, "prompt_len": PROMPT_LEN,
+          "new_tokens": NEW_TOKENS, "decode_steps": steps, "decode_s": dec["seconds"],
+          "decode_tokens_per_s": PREFILL_BATCH * steps / dec["seconds"],
+          "decode_ms_per_step": dec["seconds"] / steps * 1e3,
+          "prefill_decode_gap_bf16": gap, "prefill_logit_max_abs_bf16": want_max,
+          "gap_tol_bf16": GAP_TOL_BF16 * want_max,
+          "prefill_decode_gap_f32": gap32, "gap_tol_f32": GAP_TOL_F32, "ok": True})
+    emit(profile)
+    del dec, dec32, want, want32
+
+    # timing at the captured shapes
+    flash_flops = 4.0 * B * H * D * sum(min(i + 1, Skv) for i in range(Sq))
+    flash_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b, nc, Q, Hs, P = ssd_args[0].shape
+    N = ssd_args[3].shape[4]
+    ssd_flops = b * nc * Hs * (2.0 * (N + P) * Q * (Q + 1) / 2 + 2.0 * P * N * Q)
+    ssd_bytes = (sum(t.numel() * t.element_size() for t in ssd_args)
+                 + sum(t.numel() * 4 for t in ssd_out))
+    rows = []
+    for name, kern, run, plain, library, flops, nbytes, err, src, replaces, lib in (
+            ("flash_attention", flash_kernel.FLASH,
+             lambda: flash_kernel.launch(flash_out, q, k, v, causal=True), flash_plain,
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True),
+             flash_flops, flash_bytes, flash_err, "flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:68",
+             "torch.nn.functional.scaled_dot_product_attention"),
+            ("ssd_chunk", ssd_kernel.SSD_CHUNK,
+             lambda: ssd_kernel.launch(ssd_out, *ssd_args),
+             lambda: ssd_chunk_ref(*ssd_args), None, ssd_flops, ssd_bytes, ssd_err,
+             "ssd_chunk.cu", "src/repro/kernels/ssd_scan/kernel.py:50", None)):
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms = time_ms(run, TIMED_RUNS)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+            "launches": launches[kern.symbol], "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(plain, 5, warmup=1), "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None if library is None else time_ms(library, TIMED_RUNS),
+            "library_call": lib, "bytes": nbytes, "ops": flops,
+            "f32_ops_bound_ms": flops / F32_OPS_PER_S * 1e3,
+            "tflop_s": flops / ms / 1e9, "gb_s": nbytes / ms / 1e6,
+        })
+    # the timed launches rewrote the outputs; they must still be right
+    torch.cuda.synchronize()
+    check(float((flash_out.float() - flash_plain().float()).abs().max()) <= FLASH_TOL,
+          "flash output unchanged by the timed launches")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -372,7 +690,11 @@ def main(argv=None) -> int:
           "libraries": [str(p.relative_to(ROOT)) for p in libraries.values()]})
 
     kernel_phases(args.seed, (ROWS_PER_BLOCK, 128))
-    emit(deployment(args.seed))
+    rows = deployment(args.seed)
+    torch.cuda.empty_cache()     # the deployment's tensors went with it
+    model_kernel_phases(args.seed)
+    rows += zamba2(args.seed)
+    emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0

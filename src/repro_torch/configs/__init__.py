@@ -1,0 +1,27 @@
+"""Architecture registry of the port: ``get_config("<arch-id>")``.
+
+The port supports the Mamba2 (``ssm``) and Zamba2 (``hybrid``) kinds so
+far; the other architectures of ``repro.configs`` come with the slices
+that port their layers.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.common import ModelConfig
+
+ARCH_MODULES: Dict[str, str] = {
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+}
+
+ARCH_IDS: List[str] = list(ARCH_MODULES)
+
+
+def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
+    if arch not in ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; the port knows {ARCH_IDS}")
+    mod = importlib.import_module(ARCH_MODULES[arch])
+    return mod.SMOKE if smoke else mod.CONFIG

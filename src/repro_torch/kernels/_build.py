@@ -118,3 +118,4 @@ class Kernel:
 P = ctypes.c_void_p
 I64 = ctypes.c_longlong
 I32 = ctypes.c_int
+F32 = ctypes.c_float

@@ -123,3 +123,61 @@ def require_cuda(**tensors: torch.Tensor) -> None:
         if not t.is_cuda:
             raise ValueError(f"a CUDA kernel needs CUDA tensors; {name} has "
                              f"{_desc(t)}")
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the SSD chunk
+# ---------------------------------------------------------------------------
+
+#: head dims the flash kernel takes: multiples of 16 up to 256
+FLASH_MAX_HEAD_DIM = 256
+#: the grid's y and z extents
+GRID_YZ_MAX = 65535
+
+
+def check_attention(q, k, v, dtypes) -> None:
+    """q (B, Sq, H, D); k, v (B, Skv, KVH, D) with H % KVH == 0 and D a
+    multiple of 16 in [16, 256]; one dtype, one device."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _tensor(name, t, 4, dtypes)
+    _same_device(q=q, k=k, v=v)
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k and v must share one dtype: q {_desc(q)}, "
+                         f"k {_desc(k)}, v {_desc(v)}")
+    B, Sq, H, D = q.shape
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != D
+            or min(B, Sq, k.shape[1]) < 1):
+        raise ValueError(f"q {_desc(q)} must be (B, Sq, H, D) and k, v "
+                         f"(B, Skv, KVH, D) with B, Sq, Skv >= 1: k "
+                         f"{_desc(k)}, v {_desc(v)}")
+    KVH = k.shape[2]
+    if H % KVH:
+        raise ValueError(f"q's {H} heads are not a multiple of k's {KVH} "
+                         f"kv heads (q {_desc(q)}, k {_desc(k)})")
+    if D % 16 or D > FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} must be a multiple of 16 in [16, "
+                         f"{FLASH_MAX_HEAD_DIM}] (q {_desc(q)})")
+
+
+def check_ssd_chunk(xq, dtq, A, Bq, Cq, dtypes) -> None:
+    """xq (b, nc, Q, H, P); dtq (b, nc, Q, H) f32; A (H,) f32;
+    Bq, Cq (b, nc, Q, G, N) in xq's dtype, with H % G == 0."""
+    _tensor("xq", xq, 5, dtypes)
+    _tensor("dtq", dtq, 4, (torch.float32,))
+    _tensor("A", A, 1, (torch.float32,))
+    _tensor("Bq", Bq, 5, (xq.dtype,))
+    _tensor("Cq", Cq, 5, (xq.dtype,))
+    _same_device(xq=xq, dtq=dtq, A=A, Bq=Bq, Cq=Cq)
+    b, nc, Q, H, P = xq.shape
+    if min(b, nc, Q, H, P) < 1:
+        raise ValueError(f"xq ({_desc(xq)}) has an empty dimension")
+    if tuple(dtq.shape) != (b, nc, Q, H) or tuple(A.shape) != (H,):
+        raise ValueError(f"dtq ({_desc(dtq)}) must be (b, nc, Q, H) and A "
+                         f"({_desc(A)}) (H,) for xq {_desc(xq)}")
+    if (Bq.shape != Cq.shape or tuple(Bq.shape[:3]) != (b, nc, Q)
+            or Bq.shape[3] < 1 or Bq.shape[4] < 1):
+        raise ValueError(f"Bq ({_desc(Bq)}) and Cq ({_desc(Cq)}) must both "
+                         f"be (b, nc, Q, G, N) for xq {_desc(xq)}")
+    if H % Bq.shape[3]:
+        raise ValueError(f"xq's {H} heads are not a multiple of the "
+                         f"{Bq.shape[3]} groups of Bq ({_desc(Bq)})")

@@ -7,13 +7,30 @@ of ``repro.shuffle.api``.
   unpack_decompress_fused  Debatcher with the int8 codec
 
 Each runs where its tensors lie: on CUDA through the Hopper kernels, on
-the CPU through their plain versions.
+the CPU through their plain versions. ``ShuffleConfig`` carries the MoE
+dispatch settings the serving and model code pass along.
 """
+
+import dataclasses
 
 from repro_torch.kernels.blob_codec.ops import (compress_pack_fused,
                                                 unpack_decompress_fused)
 from repro_torch.kernels.blob_pack.ops import blob_pack_fused
 from repro_torch.kernels.blob_unpack.ops import unpack_from_keys
 
-__all__ = ["blob_pack_fused", "unpack_from_keys", "compress_pack_fused",
-           "unpack_decompress_fused"]
+__all__ = ["ShuffleConfig", "blob_pack_fused", "unpack_from_keys",
+           "compress_pack_fused", "unpack_decompress_fused"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleConfig:
+    """Fields and defaults of ``repro.shuffle.api.ShuffleConfig``; the
+    dispatch modes that read them come with the MoE slice of the port."""
+    mode: str = "dense"                  # dense | direct | blob
+    token_axes: tuple = ("pod", "data", "model")
+    expert_axes: tuple = ("pod", "model")  # EP domain, major -> minor
+    pod_axis: str = "pod"
+    capacity_factor: float = 1.25
+    compress_dcn: bool = False
+    norm_topk: bool = True
+    use_context_mesh: bool = False
