@@ -4,7 +4,8 @@
 // causal or full attention, grouped-query heads (q head h reads kv-head
 // h / (H / KVH)), scale 1/sqrt(D), an online softmax over kv tiles with f32
 // statistics and accumulation, masked scores -1e30 (kpos >= Skv, and
-// qpos < kpos when causal), output acc / max(l, 1e-30) in bf16.
+// qpos < kpos when causal), output acc / max(l, 1e-30) in q's dtype (bf16
+// or f32).
 //
 // Bound: at Zamba2-2.7B's prefill shape (B 4, S 4096, H 32, D 80, causal)
 // one call is ~344 GFLOP against ~0.17 GB of q, k, v and output, so it is
@@ -30,8 +31,23 @@
 //     starts with the longest q tiles.
 // wgmma, TMA and a persistent grid are later work.
 //
+// f32 inputs take a second kernel, flash_fwd_f32_kernel, which keeps the
+// Pallas kernel's f32 arithmetic throughout (q * scale, both products and
+// the probabilities in f32, exp rather than exp2) on the CUDA cores: the
+// tensor cores have no f32 inputs, and rounding to bf16 or tf32 would break
+// the f32 contract. It is bound by f32 operations (~5 ms at 67 TFLOP/s for
+// one call at Zamba2's shape); no configuration of the repo serves in f32,
+// so it is built for being right, not fast:
+//   - one block of 128 threads per (q tile of 64 rows, head, batch), K and
+//     V tiles of 32 rows; Q (scaled), K, V and the probabilities P are
+//     staged in shared memory with an odd row pitch, so that column reads
+//     are free of bank conflicts;
+//   - each thread owns 4 query rows x 4 keys of the scores and 4 rows x D/8
+//     columns of the output; a row's 32 scores sit in the 8 consecutive
+//     lanes that share the row group, reduced with three shuffles.
+//
 // The head dim D is a template parameter (multiples of 16 up to 256), so the
-// accumulator stays in registers. Every global offset is 64-bit.
+// accumulators stay in registers. Every global offset is 64-bit.
 //
 // The extern "C" launcher takes the caller's stream, launches without
 // synchronising, allocates nothing, and returns cudaGetLastError(). The
@@ -261,33 +277,177 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+constexpr int kF32Keys = 32;  // kv rows per tile of the f32 kernel
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int H,
+                     int KVH, int causal, float scale) {
+  constexpr int LD = D + 1;          // odd row pitch of Q, K and V, floats
+  constexpr int LP = kF32Keys + 1;   // ... of P
+  constexpr int DC = D / 8;          // output columns per thread
+  extern __shared__ float fsmem[];
+  float* sQ = fsmem;
+  float* sK = sQ + kTile * LD;
+  float* sV = sK + kF32Keys * LD;
+  float* sP = sV + kF32Keys * LD;
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int q0 = tile * kTile;
+  const long long q_stride = static_cast<long long>(H) * D;
+  const long long kv_stride = static_cast<long long>(KVH) * D;
+  const float* qb = q + (static_cast<long long>(b) * Sq + q0) * q_stride +
+                    static_cast<long long>(h) * D;
+  const float* kb = k + static_cast<long long>(b) * Skv * kv_stride +
+                    static_cast<long long>(kvh) * D;
+  const float* vb = v + static_cast<long long>(b) * Skv * kv_stride +
+                    static_cast<long long>(kvh) * D;
+
+  int n_kv = (Skv + kF32Keys - 1) / kF32Keys;
+  if (causal) n_kv = min(n_kv, (min(q0 + kTile, Sq) - 1) / kF32Keys + 1);
+
+  // rows rg * 4 + i of the tile; keys cg + 8 * c of a kv tile and output
+  // columns cg + 8 * c
+  const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+
+  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    sQ[r * LD + c] = q0 + r < Sq ? qb[r * q_stride + c] * scale : 0.f;
+  }
+  float acc[4][DC];
+  float m_row[4], l_row[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_row[i] = kNegInf;
+    l_row[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kF32Keys;
+    __syncthreads();  // Q is staged; every thread is done with the last K, V and P
+    for (int e = threadIdx.x; e < kF32Keys * D; e += kThreads) {
+      const int r = e / D, c = e % D;
+      const bool ok = k0 + r < Skv;
+      sK[r * LD + c] = ok ? kb[(k0 + r) * kv_stride + c] : 0.f;
+      sV[r * LD + c] = ok ? vb[(k0 + r) * kv_stride + c] : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4] = {};
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = sQ[(rg * 4 + i) * LD + d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[c] = sK[(cg + 8 * c) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + rg * 4 + i;
+      float mx = m_row[i];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + cg + 8 * c;
+        if (key >= Skv || (causal && key > r)) s[i][c] = kNegInf;
+        mx = fmaxf(mx, s[i][c]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[i][c] - mx);
+        sP[(rg * 4 + i) * LP + cg + 8 * c] = p;
+        rs += p;
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      const float alpha = expf(m_row[i] - mx);
+      l_row[i] = l_row[i] * alpha + rs;
+      m_row[i] = mx;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();  // P is complete
+
+    for (int key = 0; key < kF32Keys; ++key) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sP[(rg * 4 + i) * LP + key];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float vv = sV[key * LD + cg + 8 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+      }
+    }
+  }
+
+  float* ob = o + static_cast<long long>(b) * Sq * q_stride + static_cast<long long>(h) * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + rg * 4 + i;
+    if (r >= Sq) continue;
+    const float l = fmaxf(l_row[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) ob[r * q_stride + cg + 8 * c] = acc[i][c] / l;
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
-           int KVH, int causal, float scale_log2, cudaStream_t stream) {
-  const size_t smem = 3 * kTile * (D + 8) * sizeof(bf16);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+           int KVH, int causal, int f32, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Skv, H, KVH, causal, scale_log2);
+  if (f32) {
+    const size_t smem = ((kTile + 2 * kF32Keys) * (D + 1) + kTile * (kF32Keys + 1)) * sizeof(float);
+    const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), Sq, Skv, H, KVH, causal, scale);
+  } else {
+    const size_t smem = 3 * kTile * (D + 8) * sizeof(bf16);
+    const cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
+    flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), Sq, Skv, H, KVH, causal, scale_log2);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Sq, H, D), k and v (B, Skv, KVH, D), o (B, Sq, H, D), all contiguous
-// bf16; D a multiple of 16 in [16, 256]; H a multiple of KVH.
+// and of one dtype: f32 if `f32`, else bf16; D a multiple of 16 in [16, 256];
+// H a multiple of KVH; scale 1/sqrt(D).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Sq, int Skv, int H, int KVH, int D, int causal,
-                                   float scale_log2, cudaStream_t stream) {
+                                   int Sq, int Skv, int H, int KVH, int D, int causal, int f32,
+                                   float scale, cudaStream_t stream) {
   switch (D) {
 #define FLASH_CASE(d) \
   case d:             \
-    return launch<d>(q, k, v, o, B, Sq, Skv, H, KVH, causal, scale_log2, stream);
+    return launch<d>(q, k, v, o, B, Sq, Skv, H, KVH, causal, f32, scale, stream);
     FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(48) FLASH_CASE(64)
     FLASH_CASE(80) FLASH_CASE(96) FLASH_CASE(112) FLASH_CASE(128)
     FLASH_CASE(144) FLASH_CASE(160) FLASH_CASE(176) FLASH_CASE(192)

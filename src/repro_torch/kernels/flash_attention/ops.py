@@ -8,11 +8,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._checks import check_attention
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (KERNEL_DTYPES,
+                                                       flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import flash_ref
-
-#: dtypes of the plain version
-PLAIN_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,5 +19,5 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype."""
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal)
-    check_attention(q, k, v, PLAIN_DTYPES)
+    check_attention(q, k, v, KERNEL_DTYPES)
     return flash_ref(q, k, v, causal=causal)

@@ -43,7 +43,7 @@ class Attention(ParamModule):
     wo (H, hd, d). The q/k/v biases of the decoder configs come with the
     decoder slice; ``lm`` refuses configs that ask for them."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         d, H, KVH, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)

@@ -2,7 +2,11 @@
 ``repro.models.common``.
 
 The config dataclasses keep the JAX package's fields and defaults; dtypes
-are torch dtypes. ``ArraySpec`` declares one parameter or cache array
+are torch dtypes. Two fields are left out: ``flash_q_chunk`` and
+``flash_kv_chunk``, the Pallas kernel's tile sizes, which the CUDA kernel
+does not take (its tiles are fixed at 64 rows). ``SSMConfig.intra_bf16``
+is kept for the configs, and ``repro_torch.models.lm`` refuses it when
+set, since the port computes the SSD chunk in f32 only. ``ArraySpec`` declares one parameter or cache array
 (shape, dtype, logical axes, init scheme) as in the JAX package.
 ``fill_`` draws the distributions of the JAX ``ArraySpec.materialize``
 from an explicit ``torch.Generator``: a fan-in scaled normal whose
@@ -57,12 +61,11 @@ class ArraySpec:
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         return scale * self.init_scale
 
-    def empty(self, device=None) -> torch.Tensor:
+    def empty(self, device) -> torch.Tensor:
         return torch.empty(self.shape, dtype=self.dtype, device=device)
 
 
-def fill_(t: torch.Tensor, spec: ArraySpec,
-          generator: Optional[torch.Generator] = None) -> None:
+def fill_(t: torch.Tensor, spec: ArraySpec, generator: torch.Generator) -> None:
     """Draw ``t`` in place by ``spec``'s scheme (f32 draw, then cast)."""
     with torch.no_grad():
         if spec.init == "zeros":
@@ -82,16 +85,19 @@ class ParamModule(nn.Module):
         super().__init__()
         self.specs: dict = {}
 
-    def declare(self, name: str, spec: ArraySpec, device=None) -> None:
+    def declare(self, name: str, spec: ArraySpec, device) -> None:
         self.specs[name] = spec
         self.register_parameter(name, nn.Parameter(spec.empty(device),
                                                    requires_grad=False))
 
 
-def init_params(module: nn.Module,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Draw every declared parameter of ``module`` and its children, in
-    the order of ``named_modules``; returns ``module``."""
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every declared parameter of ``module`` and its children from
+    ``generator`` (on the parameters' device), in the order of
+    ``named_modules``; returns ``module``."""
+    if not isinstance(generator, torch.Generator):
+        raise TypeError(f"init_params draws from a torch.Generator, got "
+                        f"{type(generator).__name__}")
     for _, m in module.named_modules():
         if isinstance(m, ParamModule):
             for name, spec in m.specs.items():
@@ -99,7 +105,7 @@ def init_params(module: nn.Module,
     return module
 
 
-def zeros_tree(defs, device=None):
+def zeros_tree(defs, device="cuda"):
     """A nested dict of specs -> the same dict of zero tensors."""
     if isinstance(defs, dict):
         return {k: zeros_tree(v, device) for k, v in defs.items()}
@@ -162,9 +168,7 @@ class ModelConfig:
     # numerics
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    # attention implementation thresholds
-    flash_q_chunk: int = 512
-    flash_kv_chunk: int = 1024
+    # attention implementation threshold
     flash_min_seq: int = 2048      # below this use dense reference attention
     source: str = ""
 

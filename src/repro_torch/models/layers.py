@@ -30,7 +30,7 @@ def norm_spec(d: int) -> ArraySpec:
 class MLP(ParamModule):
     """The SwiGLU MLP: ``w_gate``, ``w_up``, ``w_down``."""
 
-    def __init__(self, cfg: ModelConfig, d_ff: int, device=None):
+    def __init__(self, cfg: ModelConfig, d_ff: int, device):
         super().__init__()
         d, pd = cfg.d_model, cfg.param_dtype
         self.declare("w_gate", ArraySpec((d, d_ff), pd, ("embed", "mlp")), device)
@@ -47,7 +47,7 @@ def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
 
 
 class Embedding(ParamModule):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.declare("tok", ArraySpec((cfg.vocab_size, cfg.d_model),
                                       cfg.param_dtype, ("vocab", "embed"),

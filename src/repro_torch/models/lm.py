@@ -9,15 +9,17 @@ attention block on ``concat(x, x0) @ shared_in[g]``, with the residual
 ``x + y - z``.
 
 Public surface:
-  * ``LM(cfg, device=)``                       - the parameters
+  * ``LM(cfg, device="cuda")``                 - the parameters
   * ``forward(cfg, params, batch)``            - (logits, aux) for prefill
   * ``cache_defs(cfg, batch, max_seq)``        - decode cache specs
-  * ``init_cache(cfg, batch, max_seq, device)``- a zero cache
+  * ``init_cache(cfg, batch, max_seq, device="cuda")`` - a zero cache
   * ``decode_step(cfg, params, cache, batch)`` - one-token serve step
 
 Other kinds (decoder, encoder) and options of theirs (MLA, MoE,
 multimodal, GeGLU/GELU MLPs, q/k/v biases, embedding scale) raise
-``ValueError`` naming them; they come with later slices of the port.
+``ValueError`` naming them; they come with later slices of the port. So
+does ``ssm.intra_bf16``: the JAX package then holds the intra-chunk
+tensors in bf16, and the port's SSD chunk computes in f32 only.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ def _check_kind(cfg: ModelConfig) -> None:
     unsupported = [name for name, on in (
         ("mlp=" + cfg.mlp, cfg.mlp != "swiglu"), ("qkv_bias", cfg.qkv_bias),
         ("embed_scale", cfg.embed_scale), ("moe", cfg.moe is not None),
+        ("ssm.intra_bf16", cfg.ssm is not None and cfg.ssm.intra_bf16),
         ("mla", cfg.mla is not None), ("multimodal", cfg.multimodal is not None)) if on]
     if unsupported:
         raise ValueError(f"{cfg.name}: the port does not run {unsupported} yet")
@@ -49,7 +52,7 @@ def _check_kind(cfg: ModelConfig) -> None:
 class SSMBlock(ParamModule):
     """Pre-norm Mamba2 layer: ``x + mamba2(rms_norm(x, ln))``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.declare("ln", L.norm_spec(cfg.d_model), device)
         self.mamba = SSM.Mamba2(cfg, device)
@@ -58,7 +61,7 @@ class SSMBlock(ParamModule):
 class Block(ParamModule):
     """Pre-norm transformer block: attention, then the MLP."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.declare("ln1", L.norm_spec(cfg.d_model), device)
         self.attn = A.Attention(cfg, device)
@@ -67,9 +70,10 @@ class Block(ParamModule):
 
 
 class LM(ParamModule):
-    """The parameters of an ``ssm`` or ``hybrid`` model."""
+    """The parameters of an ``ssm`` or ``hybrid`` model, on ``device``
+    (uninitialised: draw them with ``common.init_params``)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _check_kind(cfg)
         self.embed = L.Embedding(cfg, device)
@@ -151,7 +155,7 @@ def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dict:
     return zeros_tree(cache_defs(cfg, batch, max_seq), device)
 
 

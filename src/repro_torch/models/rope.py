@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     """Inverse frequencies, shape (head_dim//2,), float32."""
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim

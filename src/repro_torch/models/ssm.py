@@ -76,7 +76,7 @@ def _dims(cfg: ModelConfig):
 
 
 class Mamba2(ParamModule):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         s, d_inner, H, conv_ch, d_in_proj = _dims(cfg)
         pd, f32 = cfg.param_dtype, torch.float32

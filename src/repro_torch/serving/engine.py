@@ -1,6 +1,12 @@
 """Serving steps, the port of ``repro.serving.engine``: prefill (the
 full-sequence forward, logits only) and one-token decode with the
-KV/state cache. Both run under ``torch.inference_mode``."""
+KV/state cache. Both run under ``torch.inference_mode``.
+
+``ServeConfig`` keeps the JAX package's ``shuffle`` field, which selects
+the MoE dispatch. The ssm and hybrid kinds have no MoE layer, so neither
+package's steps read it for them, and it has no effect until the MoE
+slice of the port. The JAX package's ``temperature`` is read by nothing
+there and is left out; sampling is greedy."""
 
 from __future__ import annotations
 
@@ -16,7 +22,6 @@ from repro_torch.shuffle.api import ShuffleConfig
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     shuffle: ShuffleConfig = ShuffleConfig(mode="dense")
-    temperature: float = 0.0  # 0 = greedy
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:

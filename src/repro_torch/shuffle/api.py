@@ -7,8 +7,8 @@ of ``repro.shuffle.api``.
   unpack_decompress_fused  Debatcher with the int8 codec
 
 Each runs where its tensors lie: on CUDA through the Hopper kernels, on
-the CPU through their plain versions. ``ShuffleConfig`` carries the MoE
-dispatch settings the serving and model code pass along.
+the CPU through their plain versions. ``ShuffleConfig`` holds the MoE
+dispatch settings of the JAX package, field for field.
 """
 
 import dataclasses
@@ -24,8 +24,9 @@ __all__ = ["ShuffleConfig", "blob_pack_fused", "unpack_from_keys",
 
 @dataclasses.dataclass(frozen=True)
 class ShuffleConfig:
-    """Fields and defaults of ``repro.shuffle.api.ShuffleConfig``; the
-    dispatch modes that read them come with the MoE slice of the port."""
+    """Fields and defaults of ``repro.shuffle.api.ShuffleConfig``. Nothing
+    in the port reads them yet: the ssm and hybrid kinds have no MoE
+    layer, and the dispatch modes come with the MoE slice."""
     mode: str = "dense"                  # dense | direct | blob
     token_axes: tuple = ("pod", "data", "model")
     expert_axes: tuple = ("pod", "model")  # EP domain, major -> minor

@@ -70,8 +70,12 @@ BAD_CALLS = {
     "flash-branch-q-offset": (
         lambda: attention.attention_op(_flash_cfg(), *_qkv(S=8), causal=True, q_offset=2),
         "q_offset"),
+    # f32 passes the dtype check (the kernel has an f32 instance) and is
+    # refused only for lying on the CPU
     "flash-kernel-f32": (
-        lambda: flash_kernel.flash_attention_cuda(*_qkv()), "dtype in"),
+        lambda: flash_kernel.flash_attention_cuda(*_qkv()), "CUDA tensors"),
+    "flash-kernel-float16": (
+        lambda: flash_kernel.flash_attention_cuda(*_qkv(dtype=torch.float16)), "dtype in"),
     "flash-kernel-on-cpu": (
         lambda: flash_kernel.flash_attention_cuda(*_qkv(dtype=torch.bfloat16)),
         "CUDA tensors"),

@@ -69,7 +69,7 @@ def _port_gap(cfg, model, tok):
     B, S = tok.shape
     got = make_prefill_step(cfg, ServeConfig())(model, {"tokens": torch.from_numpy(tok)})
     step = make_decode_step(cfg, ServeConfig())
-    cache = lm.init_cache(cfg, B, S)
+    cache = lm.init_cache(cfg, B, S, device="cpu")
     gap = 0.0
     for t in range(S):
         cache, nxt, logits = step(model, cache, {"tokens": torch.from_numpy(tok[:, t:t + 1]),
@@ -126,7 +126,7 @@ def test_serve_module_entry_point():
 
 def test_decode_writes_the_cache_in_place():
     _, cfg, _, model = _setup("zamba2-2.7b")
-    cache = lm.init_cache(cfg, 1, 4)
+    cache = lm.init_cache(cfg, 1, 4, device="cpu")
     k0 = cache["shared"]["k"]
     step = make_decode_step(cfg, ServeConfig())
     cache2, _, _ = step(model, cache, {"tokens": torch.tensor([[3]]), "pos": 0})
@@ -136,9 +136,14 @@ def test_decode_writes_the_cache_in_place():
 
 
 def test_shuffle_config_has_the_jax_fields():
+    """ShuffleConfig and ServeConfig.shuffle are parity fields: the ssm
+    and hybrid kinds have no MoE layer, so no step of the port reads them
+    until the MoE slice. ServeConfig leaves out the JAX package's
+    temperature, which nothing reads there either."""
     from repro.shuffle.api import ShuffleConfig as JaxShuffleConfig
     from repro_torch.shuffle.api import ShuffleConfig
     jf = {f.name: f.default for f in dataclasses.fields(JaxShuffleConfig)}
     mine = {f.name: f.default for f in dataclasses.fields(ShuffleConfig)}
     assert mine == jf
     assert ServeConfig().shuffle == ShuffleConfig(mode="dense")
+    assert [f.name for f in dataclasses.fields(ServeConfig)] == ["shuffle"]

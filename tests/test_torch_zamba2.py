@@ -36,7 +36,7 @@ from repro.shuffle.api import ShuffleConfig as JaxShuffleConfig
 from repro_torch.configs import get_config
 from repro_torch.interop import cache_from_jax, params_from_jax, to_numpy, to_torch
 from repro_torch.models import lm, ssm
-from repro_torch.models.common import init_params
+from repro_torch.models.common import init_params, zeros_tree
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -93,7 +93,7 @@ def test_params_from_jax_is_bit_exact_and_counts_match():
 
 def test_init_params_draws_the_specs_distributions():
     cfg = get_config("zamba2-2.7b", smoke=True)
-    model = init_params(lm.LM(cfg), torch.Generator().manual_seed(0))
+    model = init_params(lm.LM(cfg, device="cpu"), torch.Generator().manual_seed(0))
     d = cfg.d_model
     assert torch.equal(model.blocks[0].mamba.D, torch.ones_like(model.blocks[0].mamba.D))
     assert float(model.final_norm.abs().max()) == 0.0
@@ -190,3 +190,22 @@ def test_what_the_port_does_not_run_raises_naming_it(field, value):
         with pytest.raises(ValueError, match=str(value) if field in ("kind", "mlp")
                            else field):
             call()
+
+
+def test_intra_bf16_raises_naming_it():
+    cfg = get_config("mamba2-130m", smoke=True)
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, intra_bf16=True))
+    for call in (lambda: lm.LM(cfg, device="meta"), lambda: lm.cache_defs(cfg, 1, 4),
+                 lambda: lm.forward(cfg, None, {})):
+        with pytest.raises(ValueError, match="intra_bf16"):
+            call()
+
+
+def test_entry_points_default_to_the_card_and_draw_from_a_generator():
+    import inspect
+    from repro_torch.interop import params_from_jax as pfj
+    for fn in (lm.LM, lm.init_cache, zeros_tree, pfj):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    model = lm.LM(get_config("zamba2-2.7b", smoke=True), device="cpu")
+    with pytest.raises(TypeError, match="torch.Generator"):
+        init_params(model, None)
