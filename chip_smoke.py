@@ -18,8 +18,10 @@
    bit and lie within half a quantization step of each record. Its
    tensors are freed before the model loads.
 4. Model kernels: flash attention against its plain version at head dims
-   64, 80, 128 and 256, GQA, MQA, non-causal and ragged, in bf16 and f32,
-   and in f32 at Zamba2's shared-block shape (timed as well); each output
+   64, 80, 128 and 256, GQA, MQA, non-causal and ragged, in bf16 and f32
+   (bf16 also at 16, 48 and 96), each case through the kernel its dtype
+   and head dim select, and in f32 at Zamba2's shared-block shape (timed
+   as well, beside ``scaled_dot_product_attention`` in f32); each output
    within ``atol + rtol |want|`` and a bound on the relative Frobenius
    error (``FLASH_TOL``);
    the SSD chunk against its plain version at N 64 and 128, two groups,
@@ -27,7 +29,8 @@
    outputs), and ``ssd_scan_op`` against ``ssd_chunked``.
 5. Zamba2-2.7B at full width (54 layers, d 2560, parameters drawn on the
    card from the seed): ``make_prefill_step`` on 4 requests of 4,096
-   tokens must launch flash attention 9 times and the SSD chunk 54 times
+   tokens must launch the wgmma flash kernel 9 times (and no other flash
+   kernel) and the SSD chunk 54 times
    and give finite logits; the q, k, v of the first shared-block call and
    the SSD inputs of the first Mamba2 layer are captured and each kernel
    is held against its plain version on them. Then decode as
@@ -40,9 +43,12 @@
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
-   time, and a PyTorch call as yardstick (``torch.index_select`` for the
-   blob kernels, ``scaled_dot_product_attention`` for flash, none for the
-   SSD chunk).
+   time, and one PyTorch call that computes the same function as
+   yardstick (``library_ms``: ``torch.index_select`` for the pack and
+   unpack kernels, ``scaled_dot_product_attention`` for flash; null for
+   the codec kernels, which no one call computes, where the same row
+   gather is timed as ``bytes_reference_ms``, and for the SSD chunk).
+   The flash row names the kernel that ran (``symbol``).
 7. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
@@ -332,6 +338,9 @@ def deployment(seed: int) -> list:
     tok = order[torch.clamp(pos, 0, T - 1)].reshape(-1)
     flat_buf, flat_q = buf.reshape(-1, d), q.reshape(-1, d)
     rows_ops = live * d * 6          # abs, max, divide, round, two clamps
+    # library: one PyTorch call that computes the same function, the blob
+    # kernels' row gathers; no one call quantizes or dequantizes, so the
+    # codec rows time the same gather only as a byte-movement reference
     work = {
         "pack": dict(
             kernel=lambda: pack_kernel.launch(buf, x, order, starts, counts),
@@ -349,14 +358,14 @@ def deployment(seed: int) -> list:
             kernel=lambda: codec_kernel.launch_compress_pack(q, scales, x, order, starts,
                                                              counts),
             plain=lambda: compress_pack_ref(x, order, starts, counts, capacity=cap),
-            library=lambda: torch.index_select(x, 0, tok),
+            bytes_ref=lambda: torch.index_select(x, 0, tok),
             bytes=live * row_bytes + q.numel() + 4 * scales.numel() + 4 * (T + 2 * P),
             ops=rows_ops, replaces="src/repro/kernels/blob_codec/kernel.py:57"),
         "unpack_decompress": dict(
             kernel=lambda: codec_kernel.launch_unpack_decompress(deq, q, scales, slot,
                                                                  valid),
             plain=lambda: unpack_decompress_ref(q, scales, slot, valid),
-            library=lambda: torch.index_select(flat_q, 0, slot),
+            bytes_ref=lambda: torch.index_select(flat_q, 0, slot),
             bytes=n_valid * (d + 4) + 5 * T + 4 * T * d, ops=n_valid * d,
             replaces="src/repro/kernels/blob_codec/kernel.py:107"),
     }
@@ -364,20 +373,26 @@ def deployment(seed: int) -> list:
     for name, w in work.items():
         ms = time_ms(w["kernel"], TIMED_RUNS)
         plain_ms = time_ms(w["plain"], 10, warmup=1)
-        library_ms = time_ms(w["library"], 10)
         byte_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
         op_ms = w["ops"] / F32_OPS_PER_S * 1e3
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/blob_kernels.cu",
             "replaces": w["replaces"], "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": library_ms, "library_call": "torch.index_select",
+            "library_ms": None, "library_call": None,
             "bytes": w["bytes"], "ops": w["ops"],
             "gb_s": w["bytes"] / ms / 1e6,
-        })
+        }
+        if "library" in w:
+            row["library_ms"] = time_ms(w["library"], 10)
+            row["library_call"] = "torch.index_select"
+        else:
+            row["bytes_reference_ms"] = time_ms(w["bytes_ref"], 10)
+            row["bytes_reference_call"] = "torch.index_select of the same rows"
+        rows.append(row)
     # the timed launches rewrote the outputs; they must still be right
     torch.cuda.synchronize()
     check(same_bits(back, x), "outputs unchanged by the timed launches")
@@ -386,7 +401,8 @@ def deployment(seed: int) -> list:
 
 # (B, S, H, KVH, D, causal, dtype): head dims 64, 80 (Zamba2), 128 and 256
 # (gemma-2b's MQA), GQA, MQA, non-causal and a ragged length of 200, in bf16
-# and f32; the last is Zamba2's shared-block shape in f32 at batch 1
+# and f32; in bf16 also 16, 48 and 96, the wgmma kernel's three kinds of
+# tail box; the last is Zamba2's shared-block shape in f32 at batch 1
 BF16, F32 = torch.bfloat16, torch.float32
 FLASH_CASES = [
     (2, 256, 8, 8, 64, True, BF16),
@@ -397,6 +413,9 @@ FLASH_CASES = [
     (2, 256, 8, 8, 80, False, BF16),
     (1, 384, 8, 1, 256, True, BF16),
     (1, 200, 8, 2, 128, False, BF16),
+    (2, 136, 4, 1, 16, True, BF16),
+    (2, 200, 8, 2, 48, True, BF16),
+    (2, 300, 4, 4, 96, False, BF16),
     (2, 256, 8, 8, 80, True, F32),
     (1, 256, 8, 2, 64, True, F32),
     (1, 200, 8, 1, 128, False, F32),
@@ -454,7 +473,7 @@ def flash_compare(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 
 def model_kernel_phases(seed: int) -> None:
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
     from repro_torch.kernels.flash_attention.ref import flash_ref
     from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_cuda
     from repro_torch.kernels.ssd_scan.ops import ssd_chunked, ssd_scan_op
@@ -469,15 +488,21 @@ def model_kernel_phases(seed: int) -> None:
         got = flash_attention_cuda(q, k, v, causal=causal)
         want = flash_ref(q, k, v, causal=causal)
         flash.append({"case": [B, S, H, KVH, D, causal, str(dtype)[6:]],
-                      **flash_compare(got, want)})
-    # the last case, Zamba2's shared-block shape in f32, timed
+                      "kernel": route(dtype, D).symbol, **flash_compare(got, want)})
+    # the last case, Zamba2's shared-block shape in f32, timed; SDPA in f32
+    # computes the same function
     f32_ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), 5)
     f32_plain_ms = time_ms(lambda: flash_ref(q, k, v, causal=causal), 3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    f32_library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), 5)
     f32_flops = 4.0 * B * H * D * S * (S + 1) / 2
-    flash_f32 = {"case": flash[-1]["case"], "ms": f32_ms, "plain_ms": f32_plain_ms,
+    flash_f32 = {"case": flash[-1]["case"], "kernel": route(F32, D).symbol, "ms": f32_ms,
+                 "plain_ms": f32_plain_ms, "library_ms": f32_library_ms,
+                 "library_call": "torch.nn.functional.scaled_dot_product_attention",
                  "ops": f32_flops, "bound_ms": f32_flops / F32_OPS_PER_S * 1e3,
                  "bound_by": "operations (f32)"}
-    del q, k, v, got, want
+    del q, k, v, qt, kt, vt, got, want
     flash_ok = all(c["ok"] for c in flash)
     if not flash_ok:
         emit({"phase": "model_kernel_checks", "flash": flash, "ok": False})
@@ -562,7 +587,9 @@ def zamba2(seed: int) -> list:
     prefill = make_prefill_step(cfg, ServeConfig())
     kernels = {k.symbol: k for k in (
         pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
-        codec_kernel.UNPACK_DECOMPRESS, flash_kernel.FLASH, ssd_kernel.SSD_CHUNK)}
+        codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, ssd_kernel.SSD_CHUNK)}
+    # Zamba2's attention (bf16, head dim 80) must take the wgmma kernel
+    flash = flash_kernel.FLASH_WGMMA
 
     # the main path, once, counting launches and capturing the first
     # flash and SSD-chunk inputs
@@ -591,12 +618,12 @@ def zamba2(seed: int) -> list:
         flash_ops.flash_attention_cuda, ssd_ops.ssd_chunk_cuda = originals
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_inv = cfg.num_layers // cfg.hybrid.shared_block_every
-    check(launches[flash_kernel.FLASH.symbol] == n_inv,
-          f"flash launched {n_inv} times in one prefill: {launches}")
+    check(launches[flash.symbol] == n_inv,
+          f"{flash.symbol} launched {n_inv} times in one prefill: {launches}")
     check(launches[ssd_kernel.SSD_CHUNK.symbol] == cfg.num_layers,
           f"SSD chunk launched {cfg.num_layers} times in one prefill: {launches}")
     check(all(n == 0 for s, n in launches.items()
-              if s not in (flash_kernel.FLASH.symbol, ssd_kernel.SSD_CHUNK.symbol)),
+              if s not in (flash.symbol, ssd_kernel.SSD_CHUNK.symbol)),
           f"no other kernel in the prefill: {launches}")
     check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
           f"logits shape {tuple(logits.shape)}")
@@ -675,7 +702,7 @@ def zamba2(seed: int) -> list:
                  + sum(t.numel() * 4 for t in ssd_out))
     rows = []
     for name, kern, run, plain, library, flops, nbytes, err, src, replaces, lib in (
-            ("flash_attention", flash_kernel.FLASH,
+            ("flash_attention", flash,
              lambda: flash_kernel.launch(flash_out, q, k, v, causal=True), flash_plain,
              lambda: torch.nn.functional.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=True, enable_gqa=True),
@@ -689,7 +716,7 @@ def zamba2(seed: int) -> list:
         bound_ms, bound_by = bound(flops, nbytes)
         ms = time_ms(run, TIMED_RUNS)
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "symbol": kern.symbol,
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": launches[kern.symbol], "max_abs_err": err, "ms": ms,
             "plain_ms": time_ms(plain, 5, warmup=1), "bound_ms": bound_ms,

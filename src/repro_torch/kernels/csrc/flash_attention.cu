@@ -1,43 +1,75 @@
-// Hand-written Hopper (sm_90a) flash-attention forward kernel.
+// Hand-written Hopper (sm_90a) flash-attention forward kernels.
 //
-// Replaces flash_attention_pallas (src/repro/kernels/flash_attention/kernel.py):
-// causal or full attention, grouped-query heads (q head h reads kv-head
-// h / (H / KVH)), scale 1/sqrt(D), an online softmax over kv tiles with f32
-// statistics and accumulation, masked scores -1e30 (kpos >= Skv, and
-// qpos < kpos when causal), output acc / max(l, 1e-30) in q's dtype (bf16
-// or f32).
+// Replaces flash_attention_pallas (src/repro/kernels/flash_attention/kernel.py,
+// pallas_call at :93): causal or full attention, grouped-query heads (q head h
+// reads kv-head h / (H / KVH), with no repeat), scale 1/sqrt(D) applied to the
+// f32 scores, an online softmax over kv tiles with f32 statistics, masked
+// scores -1e30 (kpos >= Skv, and kpos > qpos when causal) with the running
+// maximum starting at -1e30, and output acc / max(l, 1e-30) in q's dtype.
+// Three kernels serve three routes, chosen by dtype and head dim D (the
+// wrapper, repro_torch/kernels/flash_attention/kernel.py, picks the symbol):
 //
-// Bound: at Zamba2-2.7B's prefill shape (B 4, S 4096, H 32, D 80, causal)
-// one call is ~344 GFLOP against ~0.17 GB of q, k, v and output, so it is
-// bound by tensor-core operations (~0.35 ms at 989 TFLOP/s bf16). The design
-// therefore puts both products on the tensor cores and keeps the S x S
-// scores out of device memory:
-//   - one block of 4 warps per (q tile of 64 rows, head, batch); each warp
-//     owns 16 query rows, so the softmax statistics of a row live in the 4
-//     lanes of one quad and are reduced with two shuffles;
-//   - K and V tiles of 64 rows are staged in shared memory with cp.async
-//     (rows past Skv are zero-filled), the V load overlapping Q.K^T and the
-//     next K load overlapping P.V (FlashAttention-2's single-buffer scheme);
-//   - Q.K^T and P.V run as mma.sync m16n8k16 (bf16 in, f32 accumulate) with
-//     fragments loaded by ldmatrix; P is rounded to bf16 for the second
-//     product, while the row sums l use the f32 probabilities;
-//   - rows of shared memory are padded by 16 bytes so that ldmatrix reads
-//     hit 8 distinct bank groups for every head dim that is a multiple of 16;
-//   - the 1/sqrt(D) scale (times log2 e, for exp2) multiplies the f32
-//     scores: that equals the Pallas kernel's scaling of q in f32, because
-//     bf16 products are exact in f32, where a bf16 copy of q*scale would add
-//     a rounding the Pallas kernel does not have;
-//   - causal blocks skip the kv tiles above the diagonal, and the grid
-//     starts with the longest q tiles.
-// wgmma, TMA and a persistent grid are later work.
+//   bf16, D in {16, 32, ..., 128}   flash_fwd_wgmma_kernel  (wgmma, TMA)
+//   bf16, D in {144, 160, ..., 256} flash_fwd_mma_kernel    (mma.sync)
+//   f32,  D in {16, 32, ..., 256}   flash_fwd_f32_kernel    (CUDA cores)
 //
-// f32 inputs take a second kernel, flash_fwd_f32_kernel, which keeps the
-// Pallas kernel's f32 arithmetic throughout (q * scale, both products and
-// the probabilities in f32, exp rather than exp2) on the CUDA cores: the
+// --- bf16, D <= 128: flash_fwd_wgmma_kernel ---------------------------------
+// Bounds at Zamba2-2.7B's prefill shape (B 4, S 4096, 32 heads of D 80,
+// causal): one call is 344 GFLOP of matrix products, 0.35 ms at the 989
+// TFLOP/s bf16 tensor-core peak, against 0.34 GB of q, k, v and output
+// (0.10 ms at 3.35 TB/s). The softmax adds 4 x 32 x 4096 x 4097 / 2 = 1.07e9
+// exp2 on the special-function units, ~0.28 ms at their ~3.9 T/s: at D 80
+// the exponentials cost nearly as much as the products, and only running
+// them while the tensor cores work keeps the kernel near 0.35 ms rather than
+// the 0.63 ms of the two back to back. FlashAttention-3's structure
+// (arXiv:2407.08608), written out by hand:
+//   - one block per (q tile of 128 rows, head, batch), longest causal tiles
+//     first; three warpgroups: a producer and two consumers of 64 q rows
+//     each. setmaxnreg moves registers from the producer (24) to the
+//     consumers (240);
+//   - the producer's one thread issues TMA loads: Q once, then K_j and V_j
+//     (128 rows each) into a ring of 2 stages, each tile with a full and an
+//     empty mbarrier. The tensor maps are 4-D over (D, heads, S, B), so a
+//     tile past Sq or Skv is zero-filled by the hardware within its own
+//     batch row, never read from the next one;
+//   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     (K-major); the online softmax runs in registers in the exp2 domain,
+//     with the scale folded into one fma per score; O += P V is wgmma
+//     m64nDk16 with P as the A operand from registers (the S accumulator
+//     repacked to bf16 pairs: the two layouts agree fragment by fragment)
+//     and V from shared memory as an MN-major B operand (imm-trans-b 1);
+//   - each consumer issues Q K_j^T together with P_{j-1} V_{j-1} and runs
+//     the softmax of tile j while P_{j-1} V_{j-1} is still on the tensor
+//     cores; two named barriers order the two consumers' issues (ping-pong),
+//     so that one consumer's softmax runs while the other's products run;
+//   - the mask is computed only on the tiles that need it: the causal
+//     diagonal and the tile holding Skv's edge (at S 4096, 32 of a (head,
+//     batch)'s 528 tile pairs per consumer).
+// Shared memory: every tile is stored as 64-column boxes of 128-byte rows,
+// the 128-byte swizzle atom of TMA and wgmma. D 80 is not a swizzle width
+// (a 160-byte row), so it takes two boxes: columns 0-63 and 64-127, where
+// columns 80-127 are zero-filled by TMA as out of bounds and never read
+// (Q K^T takes 5 k-steps, P V has N 80). D <= 64 takes one box, D 96-128 two.
+// Q (128 rows) plus 2 stages of K and V take 160 KB at D 80 to 128: one
+// block per SM.
+//
+// --- bf16, D 144-256: flash_fwd_mma_kernel -----------------------------------
+// gemma-2b's D 256. A wgmma instance for these needs another register split
+// (the O accumulator alone is 128 registers a thread); until then they run
+// the Ampere-style kernel: one block of 4 warps per (q tile of 64 rows,
+// head, batch), 16 q rows a warp; single-buffered 64-row K and V tiles
+// staged with cp.async (rows past Skv zero-filled); mma.sync m16n8k16 with
+// ldmatrix fragments from rows padded by 16 bytes; P rounded to bf16 for
+// the second product while l sums the f32 probabilities; causal blocks skip
+// the kv tiles above the diagonal.
+//
+// --- f32: flash_fwd_f32_kernel -----------------------------------------------
+// The Pallas kernel's f32 arithmetic throughout (q * scale, both products
+// and the probabilities in f32, exp rather than exp2) on the CUDA cores: the
 // tensor cores have no f32 inputs, and rounding to bf16 or tf32 would break
-// the f32 contract. It is bound by f32 operations (~5 ms at 67 TFLOP/s for
-// one call at Zamba2's shape); no configuration of the repo serves in f32,
-// so it is built for being right, not fast:
+// the f32 contract. Bound by f32 operations (~1.3 ms at 67 TFLOP/s for one
+// causal call at Zamba2's shape at batch 1); no configuration of the repo
+// serves in f32, so it is built for being right, not fast:
 //   - one block of 128 threads per (q tile of 64 rows, head, batch), K and
 //     V tiles of 32 rows; Q (scaled), K, V and the probabilities P are
 //     staged in shared memory with an odd row pitch, so that column reads
@@ -46,22 +78,29 @@
 //     columns of the output; a row's 32 scores sit in the 8 consecutive
 //     lanes that share the row group, reduced with three shuffles.
 //
-// The head dim D is a template parameter (multiples of 16 up to 256), so the
-// accumulators stay in registers. Every global offset is 64-bit.
+// In every kernel the head dim is a template parameter, so the accumulators
+// stay in registers; every global offset is 64-bit. The scale times log2(e)
+// multiplies the f32 scores in the bf16 kernels: that equals the Pallas
+// kernel's scaling of q in f32, because bf16 products are exact in f32,
+// where a bf16 copy of q * scale would add a rounding the Pallas kernel does
+// not have.
 //
-// The extern "C" launcher takes the caller's stream, launches without
-// synchronising, allocates nothing, and returns cudaGetLastError(). The
-// Python wrapper (repro_torch/kernels/flash_attention/kernel.py) checks every
-// argument before it calls.
+// Each extern "C" launcher takes the caller's stream, launches without
+// synchronising, allocates nothing, and returns a cudaError_t. The wgmma
+// launcher encodes its three tensor maps on the host per call with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that
+// the library needs no -lcuda. The Python wrapper checks every argument
+// before it calls.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 64;      // q rows per block, kv rows per tile
-constexpr int kThreads = 128;  // 4 warps x 16 q rows
+constexpr int kTile = 64;      // q rows per block, kv rows per tile (mma.sync, f32)
+constexpr int kThreads = 128;  // 4 warps (mma.sync, f32)
 constexpr float kNegInf = -1e30f;
 
 using bf16 = __nv_bfloat16;
@@ -123,9 +162,687 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
   }
 }
 
+// --- the wgmma kernel --------------------------------------------------------
+
+constexpr int kWgRows = 64;                    // q rows per consumer warpgroup
+constexpr int kConsumers = 2;                  // consumer warpgroups
+constexpr int kBlockQ = kWgRows * kConsumers;  // q rows per block
+constexpr int kBlockKV = 128;                  // kv rows per tile
+constexpr int kWgThreads = 128;
+constexpr int kWgmmaThreads = (kConsumers + 1) * kWgThreads;
+constexpr int kBoxCols = 64;                   // one 128-byte swizzle row of bf16
+// setmaxnreg: registers a thread after the split, within the SM's 64 K
+constexpr int kProducerRegs = kConsumers == 2 ? 40 : 24;
+constexpr int kConsumerRegs = kConsumers == 2 ? 232 : 160;
+// named barriers 1, 2, ... order the consumers' issues (0 is __syncthreads)
+constexpr int kSchedBarrier = 1;
+
+// A tile of D columns is stored as D / 64 boxes of 64 columns (128-byte
+// rows, 128-byte swizzle) and a tail box for the rest: 16 columns take
+// 32-byte rows (32-byte swizzle), 32 columns 64-byte rows (64-byte
+// swizzle), 48 columns a 64-column box whose last 16 columns TMA fills with
+// zeros. A box of R rows holds R rows of its pitch; the boxes of a tile lie
+// one after the other.
+template <int D>
+struct WgmmaTiles {
+  static constexpr int kMain = D / kBoxCols;
+  static constexpr int kTail = D % kBoxCols;
+  static constexpr int kTailPitch = kTail == 0 ? 0 : kTail == 16 ? 32 : kTail == 32 ? 64 : 128;
+  static constexpr int kPitch = kMain * 128 + kTailPitch;  // bytes of a tile row, all boxes
+  static constexpr int kQBytes = kBlockQ * kPitch;
+  static constexpr int kKVBytes = kBlockKV * kPitch;       // one K or V tile
+  // + 1024: the dynamic base is aligned up to the swizzle atom by hand
+  static constexpr int kFree = 232448 - 1024 - 8 * (1 + 4 * 4) - kQBytes;
+  static constexpr int kStages = kFree / (2 * kKVBytes) < 4 ? kFree / (2 * kKVBytes) : 4;
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 4 * kStages) + 1024;
+  static_assert(kStages >= 2, "the K and V ring needs two stages");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity. A wait
+// that lasts ~10 s can only be a fault of the pipeline: it traps, so that
+// the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    if (clock64() - start > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 4-D tensor map into shared memory; completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of these registers across the
+// asynchronous products' fences and waits.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a swizzled operand with rows of `pitch`
+// bytes (128, 64 or 32: the swizzle width): start address, leading and
+// stride byte offsets (16-byte units), and the layout (1: 128-byte swizzle,
+// 2: 64-byte, 3: 32-byte). The stride byte offset is always the next 8 rows.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, int pitch) {
+  const uint64_t layout = pitch == 128 ? 1 : pitch == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(((8 * pitch) >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// d (64 x N, f32) = (scale_d ? d : 0) + A (64 x 16) B (16 x N); A and B in
+// shared memory, K-major, 128-byte swizzle.
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47},"
+      " %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x N, f32) += A (64 x 16, registers: the m16n8k16 A fragment of each
+// warp's 16 rows) B (16 x N); B in shared memory, MN-major (imm-trans-b 1),
+// 128-byte swizzle.
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23},"
+      " {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39},"
+      " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47},"
+      " {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55},"
+      " {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// exp2 on the special-function unit, results below 2^-126 flushed to zero
+// (such a probability is lost in bf16 and in l alike).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one 64 x 128 score tile in the S accumulator of a
+// consumer warpgroup. This thread holds rows `row` and `row + 8`, columns
+// k0 + 8 n + 2 tq + {0, 1} in s[4 n + {0, 1}] and s[4 n + {2, 3}]. Turns s
+// into the f32 probabilities exp2(s scale_log2 - m scale_log2), updates the
+// running maximum m (of the unscaled scores) and sum l, and returns in alpha
+// the factor by which the output accumulator must be rescaled. Maxima and
+// sums run in 4 partial chains per row: only one warp per scheduler works
+// on a softmax at a time, so latency, not throughput, bounds a long chain.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBlockKV / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2], int row,
+                                             int k0, int tq, int Skv, int causal,
+                                             float scale_log2) {
+  float pm[2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) pm[0][c] = m[0], pm[1][c] = m[1];
+#pragma unroll
+  for (int n = 0; n < kBlockKV / 8; ++n) {
+    if (kMask) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row + (e >> 1) * 8;
+        const int c = k0 + n * 8 + 2 * tq + (e & 1);
+        if (c >= Skv || (causal && c > r)) s[4 * n + e] = kNegInf;
+      }
+    }
+    pm[0][n % 4] = fmaxf(pm[0][n % 4], fmaxf(s[4 * n], s[4 * n + 1]));
+    pm[1][n % 4] = fmaxf(pm[1][n % 4], fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+  float neg_ms[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = fmaxf(fmaxf(pm[i][0], pm[i][1]), fmaxf(pm[i][2], pm[i][3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    alpha[i] = ex2((m[i] - mx) * scale_log2);
+    m[i] = mx;
+    neg_ms[i] = -mx * scale_log2;
+  }
+  float ps[2][4] = {};
+#pragma unroll
+  for (int n = 0; n < kBlockKV / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * n + e] = ex2(fmaf(s[4 * n + e], scale_log2, neg_ms[e >> 1]));
+      ps[e >> 1][n % 4] += s[4 * n + e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float rs = (ps[i][0] + ps[i][1]) + (ps[i][2] + ps[i][3]);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[i] = l[i] * alpha[i] + rs;
+  }
+}
+
+// S = Q K_j^T for one consumer warpgroup (its 64 rows start at row `wrow`
+// of the Q tile): D / 16 k-steps of 16 columns (32 bytes), both operands
+// K-major.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s_acc)[kBlockKV / 2], uint32_t sQ, int wrow,
+                                         uint32_t sK) {
+  using T = WgmmaTiles<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bool tail = kk >= 4 * T::kMain;
+    const int x = tail ? T::kMain : kk / 4;
+    const int pitch = tail ? T::kTailPitch : 128;
+    const uint32_t col = (tail ? kk - 4 * T::kMain : kk % 4) * 32;
+    wgmma_ss<kBlockKV>(
+        s_acc, smem_desc(sQ + x * kBlockQ * 128 + wrow * pitch + col, 16, pitch),
+        smem_desc(sK + x * kBlockKV * 128 + col, 16, pitch), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V_j: 16 kv rows a k-step; V is MN-major. The 64-column boxes take
+// one product of N = 64 kMain (the leading byte offset steps to the next
+// box), the tail box one of N = kTail.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
+                                         const uint32_t (&p)[kBlockKV / 16][4], uint32_t sV) {
+  using T = WgmmaTiles<D>;
+  constexpr int kMainN = 64 * T::kMain;
+#pragma unroll
+  for (int kk = 0; kk < kBlockKV / 16; ++kk) {
+    if constexpr (T::kMain > 0)
+      wgmma_rs<kMainN>(*reinterpret_cast<float(*)[kMainN / 2]>(&o_acc[0]), p[kk],
+                       smem_desc(sV + kk * 16 * 128, kBlockKV * 128, 128));
+    if constexpr (T::kTail > 0)
+      wgmma_rs<T::kTail>(*reinterpret_cast<float(*)[T::kTail / 2]>(&o_acc[kMainN / 2]), p[kk],
+                         smem_desc(sV + T::kMain * kBlockKV * 128 + kk * 16 * T::kTailPitch, 16,
+                                   T::kTailPitch));
+  }
+  wgmma_commit();
+}
+
+// The softmax of a tile, masked only where the tile crosses the causal
+// diagonal of this warpgroup's rows (first row wq0) or Skv's edge.
+__device__ __forceinline__ void softmax(float (&s)[kBlockKV / 2], float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2], int row, int wq0, int k0, int tq,
+                                        int Skv, int causal, float scale_log2) {
+  if (k0 + kBlockKV > Skv || (causal && k0 + kBlockKV - 1 > wq0))
+    softmax_tile<true>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
+  else
+    softmax_tile<false>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
+}
+
+// O *= alpha, row by row: the m64nN accumulator holds rows row and row + 8
+// in o[4 i + {0, 1}] and o[4 i + {2, 3}].
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    o[4 * i + 0] *= alpha[0];
+    o[4 * i + 1] *= alpha[0];
+    o[4 * i + 2] *= alpha[1];
+    o[4 * i + 3] *= alpha[1];
+  }
+}
+
+// P as the A operand of P V: the S accumulator of n8 blocks 2 kk and
+// 2 kk + 1 is the m16n8k16 A fragment of k-step kk, rounded to bf16 pairs.
+__device__ __forceinline__ void pack_p(uint32_t (&p)[kBlockKV / 16][4],
+                                       const float (&s)[kBlockKV / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockKV / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_q_tail,
+                       const __grid_constant__ CUtensorMap tm_k_tail,
+                       const __grid_constant__ CUtensorMap tm_v_tail, bf16* __restrict__ o,
+                       int Sq, int Skv, int H, int KVH, int causal, float scale_log2) {
+  using T = WgmmaTiles<D>;
+  constexpr int kStages = T::kStages;
+  extern __shared__ unsigned char wg_smem[];
+  const uint32_t sQ = (smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + T::kQBytes;               // stage s at + s * kKVBytes
+  const uint32_t sV = sK + kStages * T::kKVBytes;
+  const uint32_t bars = sV + kStages * T::kKVBytes;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int q0 = tile * kBlockQ;
+  int n_kv = (Skv + kBlockKV - 1) / kBlockKV;
+  // causal: no kv tile starts past the block's last query row
+  if (causal) n_kv = min(n_kv, (min(q0 + kBlockQ, Sq) - 1) / kBlockKV + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kConsumers * kWgThreads);
+      mbar_init(v_empty(s), kConsumers * kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == kConsumers) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * kWgThreads) {
+      // every box of a tile, main boxes first: tile rows r0.., `rows` of them
+      auto load_tile = [&](uint32_t dst, const CUtensorMap* main_map,
+                           const CUtensorMap* tail_map, uint32_t bar, int head, int r0,
+                           int rows) {
+#pragma unroll
+        for (int x = 0; x < T::kMain; ++x)
+          tma_load_4d(dst + x * rows * 128, main_map, bar, x * kBoxCols, head, r0, b);
+        if (T::kTail > 0)
+          tma_load_4d(dst + T::kMain * rows * 128, tail_map, bar, T::kMain * kBoxCols, head, r0,
+                      b);
+      };
+      mbar_expect_tx(q_full, T::kQBytes);
+      load_tile(sQ, &tm_q, &tm_q_tail, q_full, h, q0, kBlockQ);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        const uint32_t parity = ((j / kStages) & 1) ^ 1;  // of the consumers' last release
+        if (j >= kStages) mbar_wait(k_empty(s), parity);
+        mbar_expect_tx(k_full(s), T::kKVBytes);
+        load_tile(sK + s * T::kKVBytes, &tm_k, &tm_k_tail, k_full(s), kvh, j * kBlockKV,
+                  kBlockKV);
+        if (j >= kStages) mbar_wait(v_empty(s), parity);
+        mbar_expect_tx(v_full(s), T::kKVBytes);
+        load_tile(sV + s * T::kKVBytes, &tm_v, &tm_v_tail, v_full(s), kvh, j * kBlockKV,
+                  kBlockKV);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x % kWgThreads;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int wq0 = q0 + wg * kWgRows;            // this warpgroup's first row
+    const int row = wq0 + warp * 16 + g;          // this thread's rows: row, row + 8
+
+    float s_acc[kBlockKV / 2];
+    float o_acc[D / 2];
+    uint32_t p[kBlockKV / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBlockKV / 2; ++i) s_acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+
+    // ping-pong: the consumers take turns on the tensor cores, each issuing
+    // its products once the one before it has issued; the last lets
+    // consumer 0 go first
+    const int my_turn = kSchedBarrier + wg;
+    const int next_turn = kSchedBarrier + (wg + 1) % kConsumers;
+    constexpr int kPair = 2 * kWgThreads;
+    if (wg == kConsumers - 1) named_arrive(kSchedBarrier, kPair);
+
+    mbar_wait(q_full, 0);
+    // tile 0: S = Q K_0^T
+    mbar_wait(k_full(0), 0);
+    named_sync(my_turn, kPair);
+    fence_regs(s_acc);
+    wgmma_fence();
+    issue_qk<D>(s_acc, sQ, wg * kWgRows, sK);
+    named_arrive(next_turn, kPair);
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    mbar_arrive(k_empty(0));
+    softmax(s_acc, m, l, alpha, row, wq0, 0, tq, Skv, causal, scale_log2);
+    pack_p(p, s_acc);
+
+    for (int j = 1; j < n_kv; ++j) {
+      const int s = j % kStages, sp = (j - 1) % kStages;
+      mbar_wait(k_full(s), (j / kStages) & 1);
+      named_sync(my_turn, kPair);
+      fence_regs(s_acc);
+      wgmma_fence();
+      issue_qk<D>(s_acc, sQ, wg * kWgRows, sK + s * T::kKVBytes);  // S = Q K_j^T
+      rescale(o_acc, alpha);           // to the maximum of tile j - 1, while S runs
+      wgmma_fence();
+      mbar_wait(v_full(sp), ((j - 1) / kStages) & 1);
+      issue_pv<D>(o_acc, p, sV + sp * T::kKVBytes);  // O += P_{j-1} V_{j-1}
+      named_arrive(next_turn, kPair);
+      wgmma_wait<1>();                 // S has landed
+      fence_regs(s_acc);
+      mbar_arrive(k_empty(s));
+      softmax(s_acc, m, l, alpha, row, wq0, j * kBlockKV, tq, Skv, causal, scale_log2);
+      wgmma_wait<0>();                 // P_{j-1} V_{j-1} has landed
+      fence_regs(o_acc);
+      mbar_arrive(v_empty(sp));
+      pack_p(p, s_acc);
+    }
+
+    // the last tile's O += P V; the last consumer gives no turn after its
+    // last issue, so every named barrier ends balanced
+    const int sl = (n_kv - 1) % kStages;
+    mbar_wait(v_full(sl), ((n_kv - 1) / kStages) & 1);
+    named_sync(my_turn, kPair);
+    rescale(o_acc, alpha);
+    fence_regs(o_acc);
+    wgmma_fence();
+    issue_pv<D>(o_acc, p, sV + sl * T::kKVBytes);
+    if (wg != kConsumers - 1) named_arrive(next_turn, kPair);
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+
+    const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
+    const long long q_stride = static_cast<long long>(H) * D;
+    bf16* ob = o + static_cast<long long>(b) * Sq * q_stride + static_cast<long long>(h) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = i * 8 + 2 * tq;
+      if (row < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * q_stride + col) =
+            __floats2bfloat162_rn(o_acc[4 * i + 0] / l0, o_acc[4 * i + 1] / l0);
+      if (row + 8 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (row + 8) * q_stride + col) =
+            __floats2bfloat162_rn(o_acc[4 * i + 2] / l1, o_acc[4 * i + 3] / l1);
+    }
+  }
+}
+
+// --- the mma.sync kernel (bf16, D 144-256) -------------------------------------
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv, int H,
                  int KVH, int causal, float scale_log2) {
   constexpr int LD = D + 8;  // padded row pitch, elements
@@ -277,6 +994,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// --- the f32 kernel ------------------------------------------------------------
+
 constexpr int kF32Keys = 32;  // kv rows per tile of the f32 kernel
 
 template <int D>
@@ -413,47 +1132,157 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
-           int KVH, int causal, int f32, float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  if (f32) {
-    const size_t smem = ((kTile + 2 * kF32Keys) * (D + 1) + kTile * (kF32Keys + 1)) * sizeof(float);
-    const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), Sq, Skv, H, KVH, causal, scale);
-  } else {
-    const size_t smem = 3 * kTile * (D + 8) * sizeof(bf16);
-    const cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
-    flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), Sq, Skv, H, KVH, causal, scale_log2);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// that the library is not linked against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 (batch, seq, heads, D) tensor, innermost
+// first, cut into boxes of 64 columns x `rows` rows of one head and batch
+// row, 128-byte swizzled. Out-of-bounds elements read as zero.
+bool encode_4d(EncodeTiled encode, CUtensorMap* map, const void* ptr, int batch, int seq,
+               int heads, int D, int rows, int pitch) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(D) * sizeof(bf16);
+  const cuuint64_t strides[3] = {row_bytes, row_bytes * heads, row_bytes * heads * seq};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(pitch / sizeof(bf16)), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const CUtensorMapSwizzle swizzle = pitch == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : pitch == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+                 int H, int KVH, int causal, float scale, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  // maps of the 64-column boxes and of the tail box (a kernel without one
+  // of the two never reads its maps)
+  using T = WgmmaTiles<D>;
+  const int tail_pitch = T::kTail > 0 ? T::kTailPitch : 128;
+  CUtensorMap tm[6];
+  const void* ptr[3] = {q, k, v};
+  const int seq[3] = {Sq, Skv, Skv}, heads[3] = {H, KVH, KVH};
+  const int rows[3] = {kBlockQ, kBlockKV, kBlockKV};
+  for (int i = 0; i < 3; ++i)
+    if (!encode_4d(encode, &tm[i], ptr[i], B, seq[i], heads[i], D, rows[i], 128) ||
+        !encode_4d(encode, &tm[3 + i], ptr[i], B, seq[i], heads[i], D, rows[i], tail_pitch))
+      return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = WgmmaTiles<D>::kSmem;
+  const cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
+  const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
+  flash_fwd_wgmma_kernel<D><<<grid, kWgmmaThreads, smem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], tm[4], tm[5], static_cast<bf16*>(o), Sq, Skv, H, KVH, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+               int H, int KVH, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = 3 * kTile * (D + 8) * sizeof(bf16);
+  const cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
+  const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
+  flash_fwd_mma_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), Sq, Skv, H, KVH, causal, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+               int H, int KVH, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = ((kTile + 2 * kF32Keys) * (D + 1) + kTile * (kF32Keys + 1)) * sizeof(float);
+  const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Sq, Skv, H, KVH, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, Sq, H, D), k and v (B, Skv, KVH, D), o (B, Sq, H, D), all contiguous
-// and of one dtype: f32 if `f32`, else bf16; D a multiple of 16 in [16, 256];
-// H a multiple of KVH; scale 1/sqrt(D).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Sq, int Skv, int H, int KVH, int D, int causal, int f32,
-                                   float scale, cudaStream_t stream) {
+// Every launcher: q (B, Sq, H, D), k and v (B, Skv, KVH, D), o (B, Sq, H, D),
+// all contiguous and of the launcher's dtype; H a multiple of KVH; scale
+// 1/sqrt(D). A head dim the launcher has no instance for returns
+// cudaErrorInvalidValue.
+#define FLASH_CASE(launcher, d) \
+  case d:                       \
+    return launcher<d>(q, k, v, o, B, Sq, Skv, H, KVH, causal, scale, stream);
+
+// bf16, D a multiple of 16 in [16, 128]; q, k, v 16-byte aligned (TMA).
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                                         int B, int Sq, int Skv, int H, int KVH, int D,
+                                         int causal, float scale, cudaStream_t stream) {
   switch (D) {
-#define FLASH_CASE(d) \
-  case d:             \
-    return launch<d>(q, k, v, o, B, Sq, Skv, H, KVH, causal, f32, scale, stream);
-    FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(48) FLASH_CASE(64)
-    FLASH_CASE(80) FLASH_CASE(96) FLASH_CASE(112) FLASH_CASE(128)
-    FLASH_CASE(144) FLASH_CASE(160) FLASH_CASE(176) FLASH_CASE(192)
-    FLASH_CASE(208) FLASH_CASE(224) FLASH_CASE(240) FLASH_CASE(256)
-#undef FLASH_CASE
+    FLASH_CASE(launch_wgmma, 16) FLASH_CASE(launch_wgmma, 32) FLASH_CASE(launch_wgmma, 48)
+    FLASH_CASE(launch_wgmma, 64) FLASH_CASE(launch_wgmma, 80) FLASH_CASE(launch_wgmma, 96)
+    FLASH_CASE(launch_wgmma, 112) FLASH_CASE(launch_wgmma, 128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// bf16, D a multiple of 16 in [144, 256].
+extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                                       int B, int Sq, int Skv, int H, int KVH, int D, int causal,
+                                       float scale, cudaStream_t stream) {
+  switch (D) {
+    FLASH_CASE(launch_mma, 144) FLASH_CASE(launch_mma, 160) FLASH_CASE(launch_mma, 176)
+    FLASH_CASE(launch_mma, 192) FLASH_CASE(launch_mma, 208) FLASH_CASE(launch_mma, 224)
+    FLASH_CASE(launch_mma, 240) FLASH_CASE(launch_mma, 256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// f32, D a multiple of 16 in [16, 256].
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                       int B, int Sq, int Skv, int H, int KVH, int D, int causal,
+                                       float scale, cudaStream_t stream) {
+  switch (D) {
+    FLASH_CASE(launch_f32, 16) FLASH_CASE(launch_f32, 32) FLASH_CASE(launch_f32, 48)
+    FLASH_CASE(launch_f32, 64) FLASH_CASE(launch_f32, 80) FLASH_CASE(launch_f32, 96)
+    FLASH_CASE(launch_f32, 112) FLASH_CASE(launch_f32, 128) FLASH_CASE(launch_f32, 144)
+    FLASH_CASE(launch_f32, 160) FLASH_CASE(launch_f32, 176) FLASH_CASE(launch_f32, 192)
+    FLASH_CASE(launch_f32, 208) FLASH_CASE(launch_f32, 224) FLASH_CASE(launch_f32, 240)
+    FLASH_CASE(launch_f32, 256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#undef FLASH_CASE

@@ -1,13 +1,20 @@
-"""CUDA kernel for flash attention, the port of
+"""CUDA kernels for flash attention, the port of
 ``repro.kernels.flash_attention.kernel.flash_attention_pallas``.
 
-``flash_attention_fwd`` in ``csrc/flash_attention.cu``: one block of four
-warps per (q tile of 64 rows, head, batch), K and V tiles staged through
-shared memory, and an online softmax in f32. GQA reads kv-head
-``h // (H // KVH)``; no repeat is made. bf16 q, k, v run both products on
-the tensor cores (``mma.sync`` m16n8k16, bf16 in, f32 accumulation); f32
-q, k, v run them in f32 on the CUDA cores, as the Pallas kernel computes
-f32 inputs. The head dim is a multiple of 16 up to 256.
+``csrc/flash_attention.cu`` holds three kernels, one launcher each; the
+dtype and head dim pick one (``route``):
+
+- bf16, head dim 16-128: ``flash_attention_fwd_wgmma``. A producer
+  warpgroup streams K and V tiles with TMA into a 2-stage ring; two
+  consumer warpgroups of 64 q rows run both products as ``wgmma`` (P
+  from registers) and the online softmax, in turn on the tensor cores.
+- bf16, head dim 144-256: ``flash_attention_fwd_mma``, ``mma.sync``
+  m16n8k16 with K and V tiles staged by ``cp.async``.
+- f32: ``flash_attention_fwd_f32``, f32 products on the CUDA cores, as
+  the Pallas kernel computes f32 inputs.
+
+Every kernel reads kv-head ``h // (H // KVH)`` (no repeat) and keeps the
+softmax statistics in f32. The head dim is a multiple of 16 up to 256.
 """
 
 from __future__ import annotations
@@ -20,11 +27,25 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (GRID_YZ_MAX, check_attention,
                                          require_cuda)
 
-#: the kernel's dtypes, those of ``flash_attention_pallas``
+#: the kernels' dtypes, those of ``flash_attention_pallas``
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+#: the largest bf16 head dim of the wgmma kernel
+WGMMA_MAX_HEAD_DIM = 128
 
-FLASH = _build.Kernel("flash_attention", "flash_attention_fwd",
-                      [_build.P] * 4 + [_build.I32] * 8 + [_build.F32])
+_ARGS = [_build.P] * 4 + [_build.I32] * 7 + [_build.F32]
+FLASH_WGMMA = _build.Kernel("flash_attention", "flash_attention_fwd_wgmma", _ARGS)
+FLASH_MMA = _build.Kernel("flash_attention", "flash_attention_fwd_mma", _ARGS)
+FLASH_F32 = _build.Kernel("flash_attention", "flash_attention_fwd_f32", _ARGS)
+KERNELS = (FLASH_WGMMA, FLASH_MMA, FLASH_F32)
+
+
+def route(dtype: torch.dtype, head_dim: int) -> _build.Kernel:
+    """The kernel that serves q, k, v of this dtype and head dim."""
+    if dtype == torch.float32:
+        return FLASH_F32
+    if dtype != torch.bfloat16:
+        raise ValueError(f"no flash kernel takes {dtype}")
+    return FLASH_WGMMA if head_dim <= WGMMA_MAX_HEAD_DIM else FLASH_MMA
 
 
 def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -33,9 +54,9 @@ def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     ``flash_attention_cuda`` has accepted."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
-    FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-          B, Sq, Skv, H, KVH, D, int(causal), int(q.dtype == torch.float32),
-          1.0 / math.sqrt(D))
+    route(q.dtype, D)(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal),
+                      1.0 / math.sqrt(D))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,7 +70,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"most {GRID_YZ_MAX}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries "
-                         "(the kernel copies rows in 16-byte pieces)")
+                         "(the kernels copy rows in 16-byte pieces)")
     out = torch.empty_like(q)
     launch(out, q, k, v, causal=causal)
     return out

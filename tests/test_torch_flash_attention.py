@@ -154,13 +154,63 @@ def test_flash_kernel_matches_plain_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, cau
     q = torch.randn((B, Sq, H, D), generator=cuda_gen, device="cuda").to(dtype)
     k = torch.randn((B, Skv, KVH, D), generator=cuda_gen, device="cuda").to(dtype)
     v = torch.randn((B, Skv, KVH, D), generator=cuda_gen, device="cuda").to(dtype)
-    before = flash_kernel.FLASH.launches
+    _check_on_card(q, k, v, causal, flash_kernel.route(dtype, D))
+
+
+def _check_on_card(q, k, v, causal, kernel):
+    """One call of the kernel wrapper: it must launch ``kernel`` once and
+    agree with the plain version within ``CARD_TOL``."""
+    counts = {kern.symbol: kern.launches for kern in flash_kernel.KERNELS}
     got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_kernel.FLASH.launches == before + 1
+    counts = {kern.symbol: kern.launches - counts[kern.symbol]
+              for kern in flash_kernel.KERNELS}
+    assert counts == {kern.symbol: int(kern is kernel) for kern in flash_kernel.KERNELS}
     want = flash_ref(q, k, v, causal=causal)
-    assert got.dtype == dtype and got.shape == q.shape
-    atol, rtol, rel_fro = CARD_TOL[dtype]
+    assert got.dtype == q.dtype and got.shape == q.shape
+    atol, rtol, rel_fro = CARD_TOL[q.dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     d = got.float() - want.float()
     assert float(d.norm() / want.float().norm()) <= rel_fro
+
+
+# the wgmma kernel's edges: q and kv tiles of 128 rows cut by Sq and Skv
+# within a batch row (B >= 2), Sq != Skv both ways, each head dim it is
+# built for, MQA and GQA, non-causal, and one long causal row at Zamba2's
+# head dim 80
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,causal", [
+    (3, 200, 200, 4, 2, 80, True),
+    (2, 333, 333, 4, 4, 64, False),
+    (2, 100, 300, 4, 1, 16, True),
+    (2, 300, 100, 4, 1, 16, True),
+    (2, 129, 257, 8, 2, 128, False),
+    (2, 257, 129, 8, 2, 128, True),
+    (2, 190, 190, 4, 4, 32, True),
+    (2, 190, 190, 6, 3, 48, False),
+    (2, 256, 256, 8, 8, 96, True),
+    (2, 150, 150, 4, 1, 112, True),
+    (1, 4200, 4200, 2, 1, 80, True),
+])
+def test_wgmma_flash_kernel_edges_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, causal):
+    q, k, v = (torch.randn((B, S, n, D), generator=cuda_gen, device="cuda").bfloat16()
+               for S, n in ((Sq, H), (Skv, KVH), (Skv, KVH)))
+    _check_on_card(q, k, v, causal, flash_kernel.FLASH_WGMMA)
+
+
+@pytest.mark.parametrize("dtype,D,symbol", [
+    (torch.bfloat16, 16, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 80, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 128, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 144, "flash_attention_fwd_mma"),
+    (torch.bfloat16, 256, "flash_attention_fwd_mma"),
+    (torch.float32, 80, "flash_attention_fwd_f32"),
+    (torch.float32, 256, "flash_attention_fwd_f32"),
+])
+def test_flash_route_picks_kernel_by_dtype_and_head_dim(dtype, D, symbol):
+    assert flash_kernel.route(dtype, D).symbol == symbol
+
+
+def test_flash_route_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="float16"):
+        flash_kernel.route(torch.float16, 64)
