@@ -23,35 +23,45 @@
 // them while the tensor cores work keeps the kernel near 0.35 ms rather than
 // the 0.63 ms of the two back to back. FlashAttention-3's structure
 // (arXiv:2407.08608), written out by hand:
-//   - one block per (q tile of 128 rows, head, batch), longest causal tiles
-//     first; three warpgroups: a producer and two consumers of 64 q rows
-//     each. setmaxnreg moves registers from the producer (24) to the
-//     consumers (240);
-//   - the producer's one thread issues TMA loads: Q once, then K_j and V_j
-//     (128 rows each) into a ring of 2 stages, each tile with a full and an
-//     empty mbarrier. The tensor maps are 4-D over (D, heads, S, B), so a
-//     tile past Sq or Skv is zero-filled by the hardware within its own
-//     batch row, never read from the next one;
+//   - a persistent grid of one block per SM; a block walks work items (a q
+//     tile of 128 rows of one head and batch row), q tile fastest and the
+//     longest causal tile first, so that the blocks at work at one time
+//     share the K and V of a few heads in L2;
+//   - three warpgroups: a producer and two consumers of 64 q rows each.
+//     setmaxnreg moves registers from the producer (40) to the consumers
+//     (232);
+//   - the producer's one thread issues TMA loads: an item's Q, then K_j and
+//     V_j (128 rows each) into a ring of 3 or 4 stages (as many as fit), each
+//     with a full and an empty mbarrier; Q has its own pair, freed after the
+//     item's last Q K^T, so the next item's Q and first tiles load while the
+//     consumers finish this one. The tensor maps are 4-D over (D, heads, S,
+//     B), so a tile past Sq or Skv is zero-filled by the hardware within its
+//     own batch row, never read from the next one;
 //   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
 //     (K-major); the online softmax runs in registers in the exp2 domain,
-//     with the scale folded into one fma per score; O += P V is wgmma
-//     m64nDk16 with P as the A operand from registers (the S accumulator
-//     repacked to bf16 pairs: the two layouts agree fragment by fragment)
-//     and V from shared memory as an MN-major B operand (imm-trans-b 1);
+//     with the scale folded into one fma per score and ex2.approx.ftz on the
+//     special-function unit; O += P V is wgmma m64nDk16 with P as the A
+//     operand from registers (the S accumulator repacked to bf16 pairs: the
+//     two layouts agree fragment by fragment) and V from shared memory as an
+//     MN-major B operand (imm-trans-b 1);
 //   - each consumer issues Q K_j^T together with P_{j-1} V_{j-1} and runs
 //     the softmax of tile j while P_{j-1} V_{j-1} is still on the tensor
 //     cores; two named barriers order the two consumers' issues (ping-pong),
 //     so that one consumer's softmax runs while the other's products run;
 //   - the mask is computed only on the tiles that need it: the causal
 //     diagonal and the tile holding Skv's edge (at S 4096, 32 of a (head,
-//     batch)'s 528 tile pairs per consumer).
-// Shared memory: every tile is stored as 64-column boxes of 128-byte rows,
-// the 128-byte swizzle atom of TMA and wgmma. D 80 is not a swizzle width
-// (a 160-byte row), so it takes two boxes: columns 0-63 and 64-127, where
-// columns 80-127 are zero-filled by TMA as out of bounds and never read
-// (Q K^T takes 5 k-steps, P V has N 80). D <= 64 takes one box, D 96-128 two.
-// Q (128 rows) plus 2 stages of K and V take 160 KB at D 80 to 128: one
-// block per SM.
+//     batch)'s 528 tile pairs per consumer);
+//   - the output is acc times 1 / max(l, 1e-30), within an f32 rounding of
+//     the quotient, stored as bf16 pairs.
+// Shared memory: Q and K tiles are 64-column boxes with the 128-byte swizzle
+// plus a tail box of the narrowest swizzle that holds the rest (below, at
+// WgmmaTiles). D 80 is not a swizzle width (a 160-byte row): its Q and K take
+// a 64-column box and a 16-column box with the 32-byte swizzle, so TMA moves
+// no padding for them (Q K^T is 4 k-steps on the first box and 1 on the
+// second). V takes two 64-column boxes, columns 80-127 zero-filled by TMA
+// and never read, so that P V is one wgmma of N 80 per k-step. At D 80, Q
+// (20 KB) and 3 stages of K (20 KB) and V (32 KB) take 176 KB: one block per
+// SM, as the registers require anyway.
 //
 // --- bf16, D 144-256: flash_fwd_mma_kernel -----------------------------------
 // gemma-2b's D 256. A wgmma instance for these needs another register split
@@ -87,10 +97,10 @@
 //
 // Each extern "C" launcher takes the caller's stream, launches without
 // synchronising, allocates nothing, and returns a cudaError_t. The wgmma
-// launcher encodes its three tensor maps on the host per call with
+// launcher encodes its five tensor maps on the host per call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that
-// the library needs no -lcuda. The Python wrapper checks every argument
-// before it calls.
+// the library needs no -lcuda, and reads the card's SM count for its grid.
+// The Python wrapper checks every argument before it calls.
 
 #include <cstdint>
 #include <cuda.h>
@@ -171,18 +181,22 @@ constexpr int kBlockKV = 128;                  // kv rows per tile
 constexpr int kWgThreads = 128;
 constexpr int kWgmmaThreads = (kConsumers + 1) * kWgThreads;
 constexpr int kBoxCols = 64;                   // one 128-byte swizzle row of bf16
-// setmaxnreg: registers a thread after the split, within the SM's 64 K
-constexpr int kProducerRegs = kConsumers == 2 ? 40 : 24;
-constexpr int kConsumerRegs = kConsumers == 2 ? 232 : 160;
+// setmaxnreg: registers a thread after the split (128 x 40 + 256 x 232 of
+// the SM's 64 K)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 // named barriers 1, 2, ... order the consumers' issues (0 is __syncthreads)
 constexpr int kSchedBarrier = 1;
 
-// A tile of D columns is stored as D / 64 boxes of 64 columns (128-byte
-// rows, 128-byte swizzle) and a tail box for the rest: 16 columns take
-// 32-byte rows (32-byte swizzle), 32 columns 64-byte rows (64-byte
-// swizzle), 48 columns a 64-column box whose last 16 columns TMA fills with
-// zeros. A box of R rows holds R rows of its pitch; the boxes of a tile lie
-// one after the other.
+// Shared-memory tiles, each a row of TMA boxes of R rows (R rows of the
+// box's pitch; the boxes of a tile lie one after the other). A Q or K tile
+// of D columns takes D / 64 boxes of 64 columns (128-byte rows, 128-byte
+// swizzle) and a tail box for the rest: 16 columns take 32-byte rows
+// (32-byte swizzle), 32 columns 64-byte rows (64-byte swizzle), 48 columns
+// a 64-column box whose last 16 columns TMA fills with zeros. A V tile takes
+// 64-column boxes only, zero-filled past D, so that P V is one product of
+// N = D per k-step: split at the tail it doubled the products issued and
+// ran slower.
 template <int D>
 struct WgmmaTiles {
   static constexpr int kMain = D / kBoxCols;
@@ -190,11 +204,16 @@ struct WgmmaTiles {
   static constexpr int kTailPitch = kTail == 0 ? 0 : kTail == 16 ? 32 : kTail == 32 ? 64 : 128;
   static constexpr int kPitch = kMain * 128 + kTailPitch;  // bytes of a tile row, all boxes
   static constexpr int kQBytes = kBlockQ * kPitch;
-  static constexpr int kKVBytes = kBlockKV * kPitch;       // one K or V tile
+  static constexpr int kKBytes = kBlockKV * kPitch;        // one K tile
+  // V: all boxes 64 columns wide, so that P V is one product of N = D
+  static constexpr int kVBoxes = (D + kBoxCols - 1) / kBoxCols;
+  static constexpr int kVBytes = kBlockKV * 128 * kVBoxes;
   // + 1024: the dynamic base is aligned up to the swizzle atom by hand
-  static constexpr int kFree = 232448 - 1024 - 8 * (1 + 4 * 4) - kQBytes;
-  static constexpr int kStages = kFree / (2 * kKVBytes) < 4 ? kFree / (2 * kKVBytes) : 4;
-  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 4 * kStages) + 1024;
+  static constexpr int kFree = 232448 - 1024 - 8 * (2 + 4 * 4) - kQBytes;
+  static constexpr int kStages =
+      kFree / (kKBytes + kVBytes) < 4 ? kFree / (kKBytes + kVBytes) : 4;
+  static constexpr int kSmem =
+      kQBytes + kStages * (kKBytes + kVBytes) + 8 * (2 + 4 * kStages) + 1024;
   static_assert(kStages >= 2, "the K and V ring needs two stages");
 };
 
@@ -278,51 +297,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, int p
 // shared memory, K-major, 128-byte swizzle.
 template <int N>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t a, uint64_t b,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47},"
-      " %48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b,
@@ -617,24 +591,14 @@ __device__ __forceinline__ void issue_qk(float (&s_acc)[kBlockKV / 2], uint32_t 
   wgmma_commit();
 }
 
-// O += P V_j: 16 kv rows a k-step; V is MN-major. The 64-column boxes take
-// one product of N = 64 kMain (the leading byte offset steps to the next
-// box), the tail box one of N = kTail.
+// O += P V_j: 16 kv rows a k-step, one product of N = D each; V is
+// MN-major, in 64-column boxes (the leading byte offset steps to the next).
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
                                          const uint32_t (&p)[kBlockKV / 16][4], uint32_t sV) {
-  using T = WgmmaTiles<D>;
-  constexpr int kMainN = 64 * T::kMain;
 #pragma unroll
-  for (int kk = 0; kk < kBlockKV / 16; ++kk) {
-    if constexpr (T::kMain > 0)
-      wgmma_rs<kMainN>(*reinterpret_cast<float(*)[kMainN / 2]>(&o_acc[0]), p[kk],
-                       smem_desc(sV + kk * 16 * 128, kBlockKV * 128, 128));
-    if constexpr (T::kTail > 0)
-      wgmma_rs<T::kTail>(*reinterpret_cast<float(*)[T::kTail / 2]>(&o_acc[kMainN / 2]), p[kk],
-                         smem_desc(sV + T::kMain * kBlockKV * 128 + kk * 16 * T::kTailPitch, 16,
-                                   T::kTailPitch));
-  }
+  for (int kk = 0; kk < kBlockKV / 16; ++kk)
+    wgmma_rs<D>(o_acc, p[kk], smem_desc(sV + kk * 16 * 128, kBlockKV * 128, 128));
   wgmma_commit();
 }
 
@@ -675,38 +639,54 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[kBlockKV / 16][4],
   }
 }
 
+// One work item: a q tile of kBlockQ rows of one head and batch row. Items
+// run q tile fastest, longest causal tile first, so that the blocks at work
+// at one time share the K and V of a few heads in L2.
+struct WorkItem {
+  int q0, h, b, n_kv;
+};
+
+__device__ __forceinline__ WorkItem work_item(int w, int n_qt, int H, int Sq, int Skv,
+                                              int causal) {
+  WorkItem it;
+  it.q0 = (n_qt - 1 - w % n_qt) * kBlockQ;
+  it.h = (w / n_qt) % H;
+  it.b = w / (n_qt * H);
+  it.n_kv = (Skv + kBlockKV - 1) / kBlockKV;
+  // causal: no kv tile starts past the item's last query row
+  if (causal) it.n_kv = min(it.n_kv, (min(it.q0 + kBlockQ, Sq) - 1) / kBlockKV + 1);
+  return it;
+}
+
+// A persistent grid: each block walks the items blockIdx.x, + gridDim.x, ...
+// The K/V ring and its phases run on across items, so the producer loads
+// the next item's Q and first tiles while the consumers finish this one.
 template <int D>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_q_tail,
-                       const __grid_constant__ CUtensorMap tm_k_tail,
-                       const __grid_constant__ CUtensorMap tm_v_tail, bf16* __restrict__ o,
-                       int Sq, int Skv, int H, int KVH, int causal, float scale_log2) {
+                       const __grid_constant__ CUtensorMap tm_k_tail, bf16* __restrict__ o,
+                       int B, int Sq, int Skv, int H, int KVH, int causal, float scale_log2) {
   using T = WgmmaTiles<D>;
   constexpr int kStages = T::kStages;
   extern __shared__ unsigned char wg_smem[];
   const uint32_t sQ = (smem_addr(wg_smem) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + T::kQBytes;               // stage s at + s * kKVBytes
-  const uint32_t sV = sK + kStages * T::kKVBytes;
-  const uint32_t bars = sV + kStages * T::kKVBytes;
-  const uint32_t q_full = bars;
-  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
-  auto v_full = [&](int s) { return bars + 8u * (1 + kStages + s); };
-  auto k_empty = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
-  auto v_empty = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
-
-  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int q0 = tile * kBlockQ;
-  int n_kv = (Skv + kBlockKV - 1) / kBlockKV;
-  // causal: no kv tile starts past the block's last query row
-  if (causal) n_kv = min(n_kv, (min(q0 + kBlockQ, Sq) - 1) / kBlockKV + 1);
+  const uint32_t sK = sQ + T::kQBytes;               // stage s at + s * kKBytes
+  const uint32_t sV = sK + kStages * T::kKBytes;     // stage s at + s * kVBytes
+  const uint32_t bars = sV + kStages * T::kVBytes;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 8u * (2 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (2 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (2 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (2 + 3 * kStages + s); };
+  const int n_qt = (Sq + kBlockQ - 1) / kBlockQ;
+  const int n_items = n_qt * H * B;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers * kWgThreads);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
@@ -722,30 +702,38 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumers * kWgThreads) {
-      // every box of a tile, main boxes first: tile rows r0.., `rows` of them
-      auto load_tile = [&](uint32_t dst, const CUtensorMap* main_map,
-                           const CUtensorMap* tail_map, uint32_t bar, int head, int r0,
-                           int rows) {
+      int t = 0;  // kv tiles loaded so far, over all items
+      for (int w = blockIdx.x, i = 0; w < n_items; w += gridDim.x, ++i) {
+        const WorkItem it = work_item(w, n_qt, H, Sq, Skv, causal);
+        const int kvh = it.h / (H / KVH);
+        // every box of a tile, main boxes first: tile rows r0.., `rows` of them
+        auto load_tile = [&](uint32_t dst, const CUtensorMap* main_map,
+                             const CUtensorMap* tail_map, uint32_t bar, int head, int r0,
+                             int rows) {
 #pragma unroll
-        for (int x = 0; x < T::kMain; ++x)
-          tma_load_4d(dst + x * rows * 128, main_map, bar, x * kBoxCols, head, r0, b);
-        if (T::kTail > 0)
-          tma_load_4d(dst + T::kMain * rows * 128, tail_map, bar, T::kMain * kBoxCols, head, r0,
-                      b);
-      };
-      mbar_expect_tx(q_full, T::kQBytes);
-      load_tile(sQ, &tm_q, &tm_q_tail, q_full, h, q0, kBlockQ);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % kStages;
-        const uint32_t parity = ((j / kStages) & 1) ^ 1;  // of the consumers' last release
-        if (j >= kStages) mbar_wait(k_empty(s), parity);
-        mbar_expect_tx(k_full(s), T::kKVBytes);
-        load_tile(sK + s * T::kKVBytes, &tm_k, &tm_k_tail, k_full(s), kvh, j * kBlockKV,
-                  kBlockKV);
-        if (j >= kStages) mbar_wait(v_empty(s), parity);
-        mbar_expect_tx(v_full(s), T::kKVBytes);
-        load_tile(sV + s * T::kKVBytes, &tm_v, &tm_v_tail, v_full(s), kvh, j * kBlockKV,
-                  kBlockKV);
+          for (int x = 0; x < T::kMain; ++x)
+            tma_load_4d(dst + x * rows * 128, main_map, bar, x * kBoxCols, head, r0, it.b);
+          if (T::kTail > 0)
+            tma_load_4d(dst + T::kMain * rows * 128, tail_map, bar, T::kMain * kBoxCols, head,
+                        r0, it.b);
+        };
+        if (i > 0) mbar_wait(q_empty, (i - 1) & 1);
+        mbar_expect_tx(q_full, T::kQBytes);
+        load_tile(sQ, &tm_q, &tm_q_tail, q_full, it.h, it.q0, kBlockQ);
+        for (int j = 0; j < it.n_kv; ++j, ++t) {
+          const int s = t % kStages;
+          const uint32_t parity = ((t / kStages) & 1) ^ 1;  // of the consumers' last release
+          if (t >= kStages) mbar_wait(k_empty(s), parity);
+          mbar_expect_tx(k_full(s), T::kKBytes);
+          load_tile(sK + s * T::kKBytes, &tm_k, &tm_k_tail, k_full(s), kvh, j * kBlockKV,
+                    kBlockKV);
+          if (t >= kStages) mbar_wait(v_empty(s), parity);
+          mbar_expect_tx(v_full(s), T::kVBytes);
+#pragma unroll
+          for (int x = 0; x < T::kVBoxes; ++x)
+            tma_load_4d(sV + s * T::kVBytes + x * kBlockKV * 128, &tm_v, v_full(s),
+                        x * kBoxCols, kvh, j * kBlockKV, it.b);
+        }
       }
     }
   } else {
@@ -753,17 +741,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int tid = threadIdx.x % kWgThreads;
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, tq = lane & 3;
-    const int wq0 = q0 + wg * kWgRows;            // this warpgroup's first row
-    const int row = wq0 + warp * 16 + g;          // this thread's rows: row, row + 8
 
     float s_acc[kBlockKV / 2];
     float o_acc[D / 2];
     uint32_t p[kBlockKV / 16][4];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
-#pragma unroll
     for (int i = 0; i < kBlockKV / 2; ++i) s_acc[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
 
     // ping-pong: the consumers take turns on the tensor cores, each issuing
     // its products once the one before it has issued; the last lets
@@ -773,67 +756,83 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     constexpr int kPair = 2 * kWgThreads;
     if (wg == kConsumers - 1) named_arrive(kSchedBarrier, kPair);
 
-    mbar_wait(q_full, 0);
-    // tile 0: S = Q K_0^T
-    mbar_wait(k_full(0), 0);
-    named_sync(my_turn, kPair);
-    fence_regs(s_acc);
-    wgmma_fence();
-    issue_qk<D>(s_acc, sQ, wg * kWgRows, sK);
-    named_arrive(next_turn, kPair);
-    wgmma_wait<0>();
-    fence_regs(s_acc);
-    mbar_arrive(k_empty(0));
-    softmax(s_acc, m, l, alpha, row, wq0, 0, tq, Skv, causal, scale_log2);
-    pack_p(p, s_acc);
+    int t = 0;  // kv tiles consumed so far, over all items
+    for (int w = blockIdx.x, i = 0; w < n_items; w += gridDim.x, ++i) {
+      const WorkItem it = work_item(w, n_qt, H, Sq, Skv, causal);
+      const int wq0 = it.q0 + wg * kWgRows;          // this warpgroup's first row
+      const int row = wq0 + warp * 16 + g;           // this thread's rows: row, row + 8
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c) o_acc[c] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
 
-    for (int j = 1; j < n_kv; ++j) {
-      const int s = j % kStages, sp = (j - 1) % kStages;
-      mbar_wait(k_full(s), (j / kStages) & 1);
+      mbar_wait(q_full, i & 1);
+      // tile 0: S = Q K_0^T
+      mbar_wait(k_full(t % kStages), (t / kStages) & 1);
       named_sync(my_turn, kPair);
       fence_regs(s_acc);
       wgmma_fence();
-      issue_qk<D>(s_acc, sQ, wg * kWgRows, sK + s * T::kKVBytes);  // S = Q K_j^T
-      rescale(o_acc, alpha);           // to the maximum of tile j - 1, while S runs
-      wgmma_fence();
-      mbar_wait(v_full(sp), ((j - 1) / kStages) & 1);
-      issue_pv<D>(o_acc, p, sV + sp * T::kKVBytes);  // O += P_{j-1} V_{j-1}
+      issue_qk<D>(s_acc, sQ, wg * kWgRows, sK + (t % kStages) * T::kKBytes);
       named_arrive(next_turn, kPair);
-      wgmma_wait<1>();                 // S has landed
+      wgmma_wait<0>();
       fence_regs(s_acc);
-      mbar_arrive(k_empty(s));
-      softmax(s_acc, m, l, alpha, row, wq0, j * kBlockKV, tq, Skv, causal, scale_log2);
-      wgmma_wait<0>();                 // P_{j-1} V_{j-1} has landed
-      fence_regs(o_acc);
-      mbar_arrive(v_empty(sp));
+      mbar_arrive(k_empty(t % kStages));
+      if (it.n_kv == 1) mbar_arrive(q_empty);
+      softmax(s_acc, m, l, alpha, row, wq0, 0, tq, Skv, causal, scale_log2);
       pack_p(p, s_acc);
-    }
 
-    // the last tile's O += P V; the last consumer gives no turn after its
-    // last issue, so every named barrier ends balanced
-    const int sl = (n_kv - 1) % kStages;
-    mbar_wait(v_full(sl), ((n_kv - 1) / kStages) & 1);
-    named_sync(my_turn, kPair);
-    rescale(o_acc, alpha);
-    fence_regs(o_acc);
-    wgmma_fence();
-    issue_pv<D>(o_acc, p, sV + sl * T::kKVBytes);
-    if (wg != kConsumers - 1) named_arrive(next_turn, kPair);
-    wgmma_wait<0>();
-    fence_regs(o_acc);
+      for (int j = 1; j < it.n_kv; ++j) {
+        const int tj = t + j;
+        const int s = tj % kStages, sp = (tj - 1) % kStages;
+        mbar_wait(k_full(s), (tj / kStages) & 1);
+        named_sync(my_turn, kPair);
+        fence_regs(s_acc);
+        wgmma_fence();
+        issue_qk<D>(s_acc, sQ, wg * kWgRows, sK + s * T::kKBytes);  // S = Q K_j^T
+        rescale(o_acc, alpha);           // to the maximum of tile j - 1, while S runs
+        wgmma_fence();
+        mbar_wait(v_full(sp), ((tj - 1) / kStages) & 1);
+        issue_pv<D>(o_acc, p, sV + sp * T::kVBytes);  // O += P_{j-1} V_{j-1}
+        named_arrive(next_turn, kPair);
+        wgmma_wait<1>();                 // S has landed
+        fence_regs(s_acc);
+        mbar_arrive(k_empty(s));
+        if (j == it.n_kv - 1) mbar_arrive(q_empty);  // Q is read for the last time
+        softmax(s_acc, m, l, alpha, row, wq0, j * kBlockKV, tq, Skv, causal, scale_log2);
+        wgmma_wait<0>();                 // P_{j-1} V_{j-1} has landed
+        fence_regs(o_acc);
+        mbar_arrive(v_empty(sp));
+        pack_p(p, s_acc);
+      }
 
-    const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
-    const long long q_stride = static_cast<long long>(H) * D;
-    bf16* ob = o + static_cast<long long>(b) * Sq * q_stride + static_cast<long long>(h) * D;
+      // the last tile's O += P V; the last consumer gives no turn after its
+      // last issue of the last item, so every named barrier ends balanced
+      t += it.n_kv;
+      const int sl = (t - 1) % kStages;
+      mbar_wait(v_full(sl), ((t - 1) / kStages) & 1);
+      named_sync(my_turn, kPair);
+      rescale(o_acc, alpha);
+      fence_regs(o_acc);
+      wgmma_fence();
+      issue_pv<D>(o_acc, p, sV + sl * T::kVBytes);
+      if (wg != kConsumers - 1 || w + gridDim.x < n_items) named_arrive(next_turn, kPair);
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      mbar_arrive(v_empty(sl));
+
+      const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+      const long long q_stride = static_cast<long long>(H) * D;
+      bf16* ob = o + static_cast<long long>(it.b) * Sq * q_stride +
+                 static_cast<long long>(it.h) * D;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      const int col = i * 8 + 2 * tq;
-      if (row < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + row * q_stride + col) =
-            __floats2bfloat162_rn(o_acc[4 * i + 0] / l0, o_acc[4 * i + 1] / l0);
-      if (row + 8 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (row + 8) * q_stride + col) =
-            __floats2bfloat162_rn(o_acc[4 * i + 2] / l1, o_acc[4 * i + 3] / l1);
+      for (int c = 0; c < D / 8; ++c) {
+        const int col = c * 8 + 2 * tq;
+        if (row < Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + row * q_stride + col) =
+              __floats2bfloat162_rn(o_acc[4 * c + 0] * inv0, o_acc[4 * c + 1] * inv0);
+        if (row + 8 < Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (row + 8) * q_stride + col) =
+              __floats2bfloat162_rn(o_acc[4 * c + 2] * inv1, o_acc[4 * c + 3] * inv1);
+      }
     }
   }
 }
@@ -1183,26 +1182,33 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
                  int H, int KVH, int causal, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  // maps of the 64-column boxes and of the tail box (a kernel without one
-  // of the two never reads its maps)
+  // maps of the 64-column boxes of q, k and v, and of the tail boxes of q
+  // and k (a kernel without a tail never reads those)
   using T = WgmmaTiles<D>;
   const int tail_pitch = T::kTail > 0 ? T::kTailPitch : 128;
-  CUtensorMap tm[6];
+  CUtensorMap tm[5];
   const void* ptr[3] = {q, k, v};
   const int seq[3] = {Sq, Skv, Skv}, heads[3] = {H, KVH, KVH};
   const int rows[3] = {kBlockQ, kBlockKV, kBlockKV};
   for (int i = 0; i < 3; ++i)
     if (!encode_4d(encode, &tm[i], ptr[i], B, seq[i], heads[i], D, rows[i], 128) ||
-        !encode_4d(encode, &tm[3 + i], ptr[i], B, seq[i], heads[i], D, rows[i], tail_pitch))
+        (i < 2 &&
+         !encode_4d(encode, &tm[3 + i], ptr[i], B, seq[i], heads[i], D, rows[i], tail_pitch)))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = WgmmaTiles<D>::kSmem;
   const cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  const long long items = static_cast<long long>((Sq + kBlockQ - 1) / kBlockQ) * H * B;
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(items < sms ? items : sms);  // one block per SM
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   flash_fwd_wgmma_kernel<D><<<grid, kWgmmaThreads, smem, stream>>>(
-      tm[0], tm[1], tm[2], tm[3], tm[4], tm[5], static_cast<bf16*>(o), Sq, Skv, H, KVH, causal,
-      scale_log2);
+      tm[0], tm[1], tm[2], tm[3], tm[4], static_cast<bf16*>(o), B, Sq, Skv, H, KVH,
+      causal, scale_log2);
   return cudaGetLastError();
 }
 
