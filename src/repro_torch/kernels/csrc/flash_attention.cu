@@ -185,7 +185,8 @@ constexpr int kBoxCols = 64;                   // one 128-byte swizzle row of bf
 // the SM's 64 K)
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-// named barriers 1, 2, ... order the consumers' issues (0 is __syncthreads)
+// named barriers 1 and 2 order the two consumers' issues (0 is
+// __syncthreads)
 constexpr int kSchedBarrier = 1;
 
 // Shared-memory tiles, each a row of TMA boxes of R rows (R rows of the
@@ -748,13 +749,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < kBlockKV / 2; ++i) s_acc[i] = 0.f;
 
-    // ping-pong: the consumers take turns on the tensor cores, each issuing
-    // its products once the one before it has issued; the last lets
+    // ping-pong: the two consumers take turns on the tensor cores, each
+    // issuing its products once the other has issued; consumer 1 lets
     // consumer 0 go first
-    const int my_turn = kSchedBarrier + wg;
-    const int next_turn = kSchedBarrier + (wg + 1) % kConsumers;
+    static_assert(kConsumers == 2, "the ping-pong pairs two consumers");
+    const int my_turn = kSchedBarrier + wg, next_turn = kSchedBarrier + (wg ^ 1);
     constexpr int kPair = 2 * kWgThreads;
-    if (wg == kConsumers - 1) named_arrive(kSchedBarrier, kPair);
+    if (wg == 1) named_arrive(kSchedBarrier, kPair);
 
     int t = 0;  // kv tiles consumed so far, over all items
     for (int w = blockIdx.x, i = 0; w < n_items; w += gridDim.x, ++i) {
@@ -804,8 +805,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         pack_p(p, s_acc);
       }
 
-      // the last tile's O += P V; the last consumer gives no turn after its
-      // last issue of the last item, so every named barrier ends balanced
+      // the last tile's O += P V; consumer 1 gives no turn after its last
+      // issue of the last item, so both named barriers end balanced
       t += it.n_kv;
       const int sl = (t - 1) % kStages;
       mbar_wait(v_full(sl), ((t - 1) / kStages) & 1);
@@ -814,7 +815,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(o_acc);
       wgmma_fence();
       issue_pv<D>(o_acc, p, sV + sl * T::kVBytes);
-      if (wg != kConsumers - 1 || w + gridDim.x < n_items) named_arrive(next_turn, kPair);
+      if (wg == 0 || w + gridDim.x < n_items) named_arrive(next_turn, kPair);
       wgmma_wait<0>();
       fence_regs(o_acc);
       mbar_arrive(v_empty(sl));

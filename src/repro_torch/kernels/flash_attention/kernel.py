@@ -4,10 +4,11 @@
 ``csrc/flash_attention.cu`` holds three kernels, one launcher each; the
 dtype and head dim pick one (``route``):
 
-- bf16, head dim 16-128: ``flash_attention_fwd_wgmma``. A producer
-  warpgroup streams K and V tiles with TMA into a 2-stage ring; two
-  consumer warpgroups of 64 q rows run both products as ``wgmma`` (P
-  from registers) and the online softmax, in turn on the tensor cores.
+- bf16, head dim 16-128: ``flash_attention_fwd_wgmma``. One block per
+  SM walks tiles of 128 q rows; a producer warpgroup streams Q and the K
+  and V tiles with TMA into an mbarrier ring of 3-4 stages; two consumer
+  warpgroups of 64 q rows run both products as ``wgmma`` (P from
+  registers) and the online softmax, in turn on the tensor cores.
 - bf16, head dim 144-256: ``flash_attention_fwd_mma``, ``mma.sync``
   m16n8k16 with K and V tiles staged by ``cp.async``.
 - f32: ``flash_attention_fwd_f32``, f32 products on the CUDA cores, as
