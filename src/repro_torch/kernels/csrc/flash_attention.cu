@@ -189,6 +189,21 @@ constexpr int kConsumerRegs = 232;
 // __syncthreads)
 constexpr int kSchedBarrier = 1;
 
+// Switches of tools/flash_probe.py, a bit mask fixed at build time
+// (-DFLASH_PROBE=n; 0, the default, builds the kernel as it is). The probe
+// cuts parts out to see what the rest costs, so every switch but 8 makes
+// the kernel compute something else:
+//   1  no softmax (P is the raw scores, alpha 1);
+//   2  no wgmma (S and O are never written);
+//   4  clock64() stamps at the steps of the consumer loop (probe_stamp);
+//   8  Q and K tail boxes of 64 columns with the 128-byte swizzle,
+//      zero-filled past D, as V's are (a layout that computes the same);
+//   16 V loads only its first 64-column box.
+#ifndef FLASH_PROBE
+#define FLASH_PROBE 0
+#endif
+constexpr int kProbe = FLASH_PROBE;
+
 // Shared-memory tiles, each a row of TMA boxes of R rows (R rows of the
 // box's pitch; the boxes of a tile lie one after the other). A Q or K tile
 // of D columns takes D / 64 boxes of 64 columns (128-byte rows, 128-byte
@@ -202,7 +217,10 @@ template <int D>
 struct WgmmaTiles {
   static constexpr int kMain = D / kBoxCols;
   static constexpr int kTail = D % kBoxCols;
-  static constexpr int kTailPitch = kTail == 0 ? 0 : kTail == 16 ? 32 : kTail == 32 ? 64 : 128;
+  static constexpr int kTailPitch = kTail == 0                 ? 0
+                                    : kTail == 48 || kProbe & 8 ? 128
+                                    : kTail == 16               ? 32
+                                                                : 64;
   static constexpr int kPitch = kMain * 128 + kTailPitch;  // bytes of a tile row, all boxes
   static constexpr int kQBytes = kBlockQ * kPitch;
   static constexpr int kKBytes = kBlockKV * kPitch;        // one K tile
@@ -579,6 +597,7 @@ template <int D>
 __device__ __forceinline__ void issue_qk(float (&s_acc)[kBlockKV / 2], uint32_t sQ, int wrow,
                                          uint32_t sK) {
   using T = WgmmaTiles<D>;
+  if (kProbe & 2) return wgmma_commit();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const bool tail = kk >= 4 * T::kMain;
@@ -597,6 +616,7 @@ __device__ __forceinline__ void issue_qk(float (&s_acc)[kBlockKV / 2], uint32_t 
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
                                          const uint32_t (&p)[kBlockKV / 16][4], uint32_t sV) {
+  if (kProbe & 2) return wgmma_commit();
 #pragma unroll
   for (int kk = 0; kk < kBlockKV / 16; ++kk)
     wgmma_rs<D>(o_acc, p[kk], smem_desc(sV + kk * 16 * 128, kBlockKV * 128, 128));
@@ -608,6 +628,10 @@ __device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
 __device__ __forceinline__ void softmax(float (&s)[kBlockKV / 2], float (&m)[2], float (&l)[2],
                                         float (&alpha)[2], int row, int wq0, int k0, int tq,
                                         int Skv, int causal, float scale_log2) {
+  if (kProbe & 1) {
+    alpha[0] = alpha[1] = 1.f;
+    return;
+  }
   if (k0 + kBlockKV > Skv || (causal && k0 + kBlockKV - 1 > wq0))
     softmax_tile<true>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
   else
@@ -638,6 +662,17 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[kBlockKV / 16][4],
     p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
     p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
+}
+
+#if FLASH_PROBE & 4
+__device__ long long flash_probe_trace[kConsumers][40][8];
+#endif
+
+// Probe switch 4: stamp step k of kv tile j of block 0's first item.
+__device__ __forceinline__ void probe_stamp(int wg, int tid, int i, int j, int k) {
+#if FLASH_PROBE & 4
+  if (blockIdx.x == 0 && tid == 0 && i == 0 && j < 40) flash_probe_trace[wg][j][k] = clock64();
+#endif
 }
 
 // One work item: a q tile of kBlockQ rows of one head and batch row. Items
@@ -729,9 +764,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           load_tile(sK + s * T::kKBytes, &tm_k, &tm_k_tail, k_full(s), kvh, j * kBlockKV,
                     kBlockKV);
           if (t >= kStages) mbar_wait(v_empty(s), parity);
-          mbar_expect_tx(v_full(s), T::kVBytes);
+          constexpr int kVLoaded = kProbe & 16 ? 1 : T::kVBoxes;
+          mbar_expect_tx(v_full(s), kVLoaded * kBlockKV * 128);
 #pragma unroll
-          for (int x = 0; x < T::kVBoxes; ++x)
+          for (int x = 0; x < kVLoaded; ++x)
             tma_load_4d(sV + s * T::kVBytes + x * kBlockKV * 128, &tm_v, v_full(s),
                         x * kBoxCols, kvh, j * kBlockKV, it.b);
         }
@@ -784,23 +820,31 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 1; j < it.n_kv; ++j) {
         const int tj = t + j;
         const int s = tj % kStages, sp = (tj - 1) % kStages;
+        probe_stamp(wg, tid, i, j, 0);
         mbar_wait(k_full(s), (tj / kStages) & 1);
+        probe_stamp(wg, tid, i, j, 1);
         named_sync(my_turn, kPair);
         fence_regs(s_acc);
+        probe_stamp(wg, tid, i, j, 2);
         wgmma_fence();
         issue_qk<D>(s_acc, sQ, wg * kWgRows, sK + s * T::kKBytes);  // S = Q K_j^T
+        probe_stamp(wg, tid, i, j, 3);
         rescale(o_acc, alpha);           // to the maximum of tile j - 1, while S runs
         wgmma_fence();
         mbar_wait(v_full(sp), ((tj - 1) / kStages) & 1);
+        probe_stamp(wg, tid, i, j, 4);
         issue_pv<D>(o_acc, p, sV + sp * T::kVBytes);  // O += P_{j-1} V_{j-1}
         named_arrive(next_turn, kPair);
         wgmma_wait<1>();                 // S has landed
         fence_regs(s_acc);
+        probe_stamp(wg, tid, i, j, 5);
         mbar_arrive(k_empty(s));
         if (j == it.n_kv - 1) mbar_arrive(q_empty);  // Q is read for the last time
         softmax(s_acc, m, l, alpha, row, wq0, j * kBlockKV, tq, Skv, causal, scale_log2);
+        probe_stamp(wg, tid, i, j, 6);
         wgmma_wait<0>();                 // P_{j-1} V_{j-1} has landed
         fence_regs(o_acc);
+        probe_stamp(wg, tid, i, j, 7);
         mbar_arrive(v_empty(sp));
         pack_p(p, s_acc);
       }
@@ -1293,3 +1337,11 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
 }
 
 #undef FLASH_CASE
+
+#if FLASH_PROBE & 4
+// Probe switch 4: copy the clock stamps to `out` (2 x 40 x 8 long longs).
+extern "C" int flash_probe_trace_read(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, flash_probe_trace, sizeof(flash_probe_trace)));
+}
+#endif

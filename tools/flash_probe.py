@@ -1,30 +1,38 @@
 #!/usr/bin/env python3
 """Probe the wgmma flash-attention kernel on the card: where its time goes.
 
-    python3 tools/flash_probe.py [--runs N]
+    python3 tools/flash_probe.py [--runs N] [--compare NAME=SOURCE ...]
 
 Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` with ``nvcc``
-five times into ``build/flash_probe/``, each from a copy patched with
-switches that only this probe turns on:
+once for each setting of the kernel's ``FLASH_PROBE`` switches (see the
+source) into ``build/flash_probe/``, all builds at once:
 
-- ``kernel``: the source as it is;
+- ``kernel``: the kernel as it is;
 - ``no_softmax``: the consumers skip the softmax (P is the raw scores);
-- ``no_products``: the consumers issue no wgmma (S and O are never
-  written);
+- ``no_products``: the consumers issue no wgmma;
 - ``loads_only``: both, leaving the TMA ring, the barriers and the
   epilogue;
+- ``wide_tail``: Q and K tail boxes of 64 columns with the 128-byte
+  swizzle, zero-filled past D, as V's are;
+- ``loads_wide_tail``: ``loads_only`` with that layout;
+- ``loads_v_one_box``: ``loads_only`` loading only V's first 64-column box;
+- ``trace``: stamps ``clock64()`` at each step of the consumer loop for
+  the first item of block 0.
 
-and a fifth, ``trace``, that stamps ``clock64()`` at each step of the
-consumer loop for the first item of block 0. Each build's
-``flash_attention_fwd_wgmma`` is timed with CUDA events (median of
-``--runs``) at Zamba2-2.7B's prefill shape (B 4, S 4096, 32 heads of 80,
-causal), at head dims 64 and 128 and non-causal at 80, beside
-``scaled_dot_product_attention`` on the same inputs. Only ``kernel`` must
-match the plain version (``FLASH_TOL``'s bf16 bound); the others compute
-something else by design. The trace prints, per consumer warpgroup, the
-median clocks of each step over the steady kv tiles of a non-causal row.
+Each ``--compare NAME=SOURCE`` builds another version of the source as it
+is (for example an earlier commit's, unpacked with ``git show``) and times
+it as ``NAME``. Every build's ``flash_attention_fwd_wgmma`` is timed with
+``chip_smoke.time_ms`` (median of ``--runs``) at Zamba2-2.7B's prefill
+shape (B 4, S 4096, 32 heads of 80, causal), at head dims 64 and 128 and
+non-causal at 80, beside ``scaled_dot_product_attention`` on the same
+inputs. ``kernel``, ``wide_tail`` and the compared sources must match the
+plain version by ``chip_smoke.flash_compare`` (``FLASH_TOL``); the others
+compute something else by design. The trace prints, per consumer
+warpgroup, the median clocks of each step over the steady kv tiles of a
+non-causal row.
 
-Prints one JSON object per line; exits non-zero without a CUDA device.
+Prints one JSON object per line; exits non-zero without a CUDA device or
+when a checked build disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -45,69 +53,28 @@ SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu
 OUT = ROOT / "build" / "flash_probe"
 SHAPES = [(4, 4096, 32, 80, True), (4, 4096, 32, 64, True),
           (4, 4096, 32, 128, True), (4, 4096, 32, 80, False)]
-BF16_ATOL, BF16_RTOL = 8e-3, 1e-2
-
-# (anchor in the source, text inserted after it)
-PATCHES = [
-    ("                                        int Skv, int causal, float scale_log2) {\n",
-     "#ifdef PROBE_NO_SOFTMAX\n  alpha[0] = alpha[1] = 1.f;\n  return;\n#endif\n"),
-    ("                                         uint32_t sK) {\n",
-     "#ifdef PROBE_NO_PRODUCTS\n  wgmma_commit();\n  return;\n#endif\n"),
-    ("                                         const uint32_t (&p)[kBlockKV / 16][4], "
-     "uint32_t sV) {\n",
-     "#ifdef PROBE_NO_PRODUCTS\n  wgmma_commit();\n  return;\n#endif\n"),
-    ("// --- the wgmma kernel ---------------------------------------------------"
-     "-----\n",
-     "#ifdef PROBE_TRACE\n__device__ long long probe_trace[2][40][10];\n"
-     "#define PROBE(k) if (blockIdx.x == 0 && tid == 0 && i == 0 && j < 40) "
-     "probe_trace[wg][j][k] = clock64()\n#else\n#define PROBE(k)\n#endif\n"),
-    ("        const int s = tj % kStages, sp = (tj - 1) % kStages;\n", "        PROBE(0);\n"),
-    ("        mbar_wait(k_full(s), (tj / kStages) & 1);\n", "        PROBE(1);\n"),
-    ("        named_sync(my_turn, kPair);\n        fence_regs(s_acc);\n", "        PROBE(2);\n"),
-    ("sK + s * T::kKBytes);  // S = Q K_j^T\n", "        PROBE(3);\n"),
-    ("        mbar_wait(v_full(sp), ((tj - 1) / kStages) & 1);\n", "        PROBE(4);\n"),
-    ("                 // S has landed\n        fence_regs(s_acc);\n", "        PROBE(6);\n"),
-    ("j * kBlockKV, tq, Skv, causal, scale_log2);\n", "        PROBE(7);\n"),
-    ("                 // P_{j-1} V_{j-1} has landed\n        fence_regs(o_acc);\n",
-     "        PROBE(8);\n"),
-]
-TRACE_READER = """
-#ifdef PROBE_TRACE
-extern "C" int flash_probe_trace(long long* out) {
-  return cudaMemcpyFromSymbol(out, probe_trace, sizeof(probe_trace));
-}
-#endif
-"""
-# the steps between stamps: 0 -> 1 -> 2 -> 3 -> 4 -> 6 -> 7 -> 8 -> next 0
+# name -> FLASH_PROBE bits (the switches at kProbe in the source)
+VARIANTS = {"kernel": 0, "no_softmax": 1, "no_products": 2, "loads_only": 3,
+            "wide_tail": 8, "loads_wide_tail": 11, "loads_v_one_box": 19, "trace": 4}
+CHECKED = {"kernel", "wide_tail"}
+# the steps between the trace's stamps 0 -> 1 -> ... -> 7 -> the next tile's 0
 STEPS = ["wait_k", "turn", "issue_qk", "rescale_wait_v", "issue_pv_wait_s",
          "softmax", "wait_pv", "pack_to_next"]
-VARIANTS = {"kernel": [], "no_softmax": ["-DPROBE_NO_SOFTMAX"],
-            "no_products": ["-DPROBE_NO_PRODUCTS"],
-            "loads_only": ["-DPROBE_NO_SOFTMAX", "-DPROBE_NO_PRODUCTS"],
-            "trace": ["-DPROBE_TRACE"]}
+TRACE_TILES, TRACE_STAMPS = 40, 8
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def patched_source() -> str:
-    text = SOURCE.read_text()
-    for anchor, insert in PATCHES:
-        if text.count(anchor) != 1:
-            raise RuntimeError(f"probe anchor not found once in {SOURCE.name}: {anchor!r}")
-        text = text.replace(anchor, anchor + insert)
-    return text + TRACE_READER
-
-
-def build() -> dict:
+def build(compare: dict) -> dict:
     from repro_torch.kernels import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
-    src = OUT / "flash_probe.cu"
-    src.write_text(patched_source())
     jobs = {}
-    for name, flags in VARIANTS.items():
+    builds = {name: (SOURCE, [f"-DFLASH_PROBE={bits}"]) for name, bits in VARIANTS.items()}
+    builds.update({name: (Path(src), []) for name, src in compare.items()})
+    for name, (src, flags) in builds.items():
         lib = OUT / f"{name}.so"
         jobs[name] = (lib, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)],
@@ -129,38 +96,25 @@ def launcher(lib):
     return fn
 
 
-def time_ms(fn, runs: int) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=20)
+    ap.add_argument("--compare", action="append", default=[], metavar="NAME=SOURCE",
+                    help="another flash_attention.cu to build and time as NAME")
     args = ap.parse_args(argv)
+    compare = dict(c.split("=", 1) for c in args.compare)
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device; this probe runs on the GPU only",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from chip_smoke import flash_compare, nvidia_smi, time_ms
     from repro_torch.kernels.flash_attention.ref import flash_ref
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    emit({"probe": "device", "nvidia_smi": smi})
-    libs = build()
+    emit({"probe": "device", "nvidia_smi": nvidia_smi()})
+    libs = build(compare)
+    checked = CHECKED | set(compare)
+    timed = [n for n in [*VARIANTS, *compare] if n != "trace"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     ok = True
@@ -168,12 +122,14 @@ def main(argv=None) -> int:
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
                    for _ in range(3))
         out = torch.empty_like(q)
+        want = torch.cat([flash_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
+                          for i in range(B)])
         flops = 4.0 * B * H * D * (S * (S + 1) / 2 if causal else S * S)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {"probe": "time", "shape": [B, S, H, D, causal], "gflop": flops / 1e9,
                "sdpa_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal), args.runs)}
-        for name in ("kernel", "no_softmax", "no_products", "loads_only"):
+        for name in timed:
             fn = launcher(libs[name])
 
             def call():
@@ -183,16 +139,13 @@ def main(argv=None) -> int:
                     raise RuntimeError(f"{name} probe: CUDA error {err}")
 
             row[f"{name}_ms"] = time_ms(call, args.runs)
-            if name == "kernel":
+            if name in checked:
                 call()
-                want = torch.cat([flash_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                                            causal=causal) for i in range(B)])
-                d = (out.float() - want.float()).abs()
-                ratio = float((d / (BF16_ATOL + BF16_RTOL * want.float().abs())).max())
-                row["kernel_tol_ratio"] = ratio
-                ok = ok and ratio <= 1.0
+                got = flash_compare(out, want)
+                row[f"{name}_check"] = got
+                ok = ok and got["ok"]
         emit(row)
-        del q, k, v, out, qt, kt, vt
+        del q, k, v, out, want, qt, kt, vt
     # the trace: a non-causal row of 32 kv tiles at head dim 80
     B, S, H, D = 4, 4096, 32, 80
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
@@ -203,20 +156,20 @@ def main(argv=None) -> int:
         fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S, H, H, D, 0,
            1.0 / math.sqrt(D), stream)
     torch.cuda.synchronize()
-    buf = (ctypes.c_longlong * (2 * 40 * 10))()
-    if libs["trace"].flash_probe_trace(buf):
+    n = 2 * TRACE_TILES * TRACE_STAMPS
+    buf = (ctypes.c_longlong * n)()
+    if libs["trace"].flash_probe_trace_read(buf):
         raise RuntimeError("could not read the probe's trace")
-    stamps = [[list(buf[(wg * 40 + j) * 10:(wg * 40 + j) * 10 + 10]) for j in range(40)]
-              for wg in range(2)]
-    order = [0, 1, 2, 3, 4, 6, 7, 8]
+    stamps = [[list(buf[(wg * TRACE_TILES + j) * TRACE_STAMPS:
+                        (wg * TRACE_TILES + j + 1) * TRACE_STAMPS])
+               for j in range(TRACE_TILES)] for wg in range(2)]
     for wg in range(2):
         steps = {name: [] for name in STEPS + ["tile"]}
         for j in range(2, 30):
-            r, nxt = stamps[wg][j], stamps[wg][j + 1][0]
-            marks = [r[c] for c in order] + [nxt]
+            marks = stamps[wg][j] + [stamps[wg][j + 1][0]]
             for name, a, b in zip(STEPS, marks, marks[1:]):
                 steps[name].append(b - a)
-            steps["tile"].append(nxt - r[0])
+            steps["tile"].append(marks[-1] - marks[0])
         emit({"probe": "trace", "shape": [B, S, H, D, False], "warpgroup": wg,
               "median_clocks": {n: statistics.median(x) for n, x in steps.items()}})
     emit({"probe": "done", "ok": ok})
