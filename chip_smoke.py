@@ -23,17 +23,25 @@
    and head dim select, and in f32 at Zamba2's shared-block shape (timed
    as well, beside ``scaled_dot_product_attention`` in f32); each output
    within ``atol + rtol |want|`` and a bound on the relative Frobenius
-   error (``FLASH_TOL``);
-   the SSD chunk against its plain version at N 64 and 128, two groups,
-   chunks of 64 and 256 and ragged lengths (1e-4 atol and rtol, all four
-   outputs), and ``ssd_scan_op`` against ``ssd_chunked``.
+   error (``FLASH_TOL``); each bf16 case also reports its gap to
+   ``flash_ref_f32p`` (probabilities and V in f32, as the Pallas kernel
+   keeps them), a report and no gate. The ``mma.sync`` kernel is timed at
+   gemma-2b's shape (S 4,096, 8 heads, 1 kv head, D 256, causal) and
+   deepseek-v2-lite's (S 4,096, 16 heads of D 192) beside SDPA and its
+   bound. The SSD chunk against its plain version at N 64 and 128,
+   two groups, chunks of 64 and 256, ragged lengths, mamba2-130m's 24
+   heads and a bf16 shape off the tensor-core contract (1e-4 atol and
+   rtol, all four outputs), each case through the kernel its dtype and
+   shape select, and ``ssd_scan_op`` against ``ssd_chunked``.
 5. Zamba2-2.7B at full width (54 layers, d 2560, parameters drawn on the
    card from the seed): ``make_prefill_step`` on 4 requests of 4,096
    tokens must launch the wgmma flash kernel 9 times (and no other flash
-   kernel) and the SSD chunk 54 times
-   and give finite logits; the q, k, v of the first shared-block call and
-   the SSD inputs of the first Mamba2 layer are captured and each kernel
-   is held against its plain version on them. Then decode as
+   kernel) and the tensor-core SSD chunk 54 times (and the CUDA-core one
+   never), and give finite logits; the q, k, v of the first shared-block
+   call and the SSD inputs of the first Mamba2 layer are captured and each
+   kernel is held against its plain version on them (flash also reports
+   its gap to ``flash_ref_f32p``); the CUDA-core SSD kernel is timed on
+   the captured inputs, in bf16 and in f32. Then decode as
    ``repro_torch.launch.serve`` does it: 4 prompts of 16 tokens and 48
    new tokens through ``make_decode_step``; the decode logits over the
    prompt must match the prefill logits of the same prompt (f32: 5e-3;
@@ -48,7 +56,7 @@
    unpack kernels, ``scaled_dot_product_attention`` for flash; null for
    the codec kernels, which no one call computes, where the same row
    gather is timed as ``bytes_reference_ms``, and for the SSD chunk).
-   The flash row names the kernel that ran (``symbol``).
+   The flash and SSD rows name the kernel that ran (``symbol``).
 7. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
@@ -423,12 +431,22 @@ FLASH_CASES = [
     (1, 4096, 32, 32, 80, True, F32),
 ]
 # (b, S, H, P, G, N, chunk, dtype): Zamba2's N 64 and mamba2-130m's 128,
-# two groups, chunks of 64 and 256, ragged lengths
+# two groups, chunks of 64 and 256, ragged lengths; mamba2-130m's width
+# (24 heads of 64, N 128, one group); a bf16 N of 40, off the tensor-core
+# kernel's contract, which takes the CUDA-core kernel
 SSD_CASES = [
     (2, 512, 8, 64, 1, 64, 256, torch.bfloat16),
     (2, 512, 8, 64, 2, 128, 256, torch.bfloat16),
     (1, 300, 8, 64, 2, 64, 64, torch.float32),
     (2, 1000, 4, 64, 1, 128, 256, torch.float32),
+    (2, 1024, 24, 64, 1, 128, 256, torch.bfloat16),
+    (1, 600, 8, 64, 1, 40, 256, torch.bfloat16),
+]
+# bf16 flash at the head dims of the mma.sync kernel, timed:
+# (name, B, S, H, KVH, D), causal
+FLASH_MMA_TIMED = [
+    ("gemma-2b", 1, 4096, 8, 1, 256),
+    ("deepseek-v2-lite", 1, 4096, 16, 16, 192),
 ]
 
 
@@ -472,10 +490,28 @@ def flash_compare(got: torch.Tensor, want: torch.Tensor) -> dict:
     return out
 
 
+def f32p_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """A flash output's gap to ``flash_ref_f32p``: a report, no gate."""
+    d = got.float() - want.float()
+    return {"max_abs": float(d.abs().max()), "rel_fro": float(d.norm() / want.float().norm())}
+
+
+def flash_flops(B, Sq, Skv, H, D, causal=True) -> float:
+    """The two products' operations, counting only unmasked keys."""
+    keys = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
+    return 4.0 * B * H * D * keys
+
+
+def bound(flops: float, nbytes: float):
+    op_ms = flops / BF16_OPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
 def model_kernel_phases(seed: int) -> None:
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
-    from repro_torch.kernels.flash_attention.ref import flash_ref
-    from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_ref, flash_ref_f32p
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.ops import ssd_chunked, ssd_scan_op
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 
@@ -489,6 +525,8 @@ def model_kernel_phases(seed: int) -> None:
         want = flash_ref(q, k, v, causal=causal)
         flash.append({"case": [B, S, H, KVH, D, causal, str(dtype)[6:]],
                       "kernel": route(dtype, D).symbol, **flash_compare(got, want)})
+        if dtype == BF16:
+            flash[-1]["f32p_gap"] = f32p_gap(got, flash_ref_f32p(q, k, v, causal=causal))
     # the last case, Zamba2's shared-block shape in f32, timed; SDPA in f32
     # computes the same function
     f32_ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), 5)
@@ -496,26 +534,60 @@ def model_kernel_phases(seed: int) -> None:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     f32_library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal), 5)
-    f32_flops = 4.0 * B * H * D * S * (S + 1) / 2
+    f32_flops = flash_flops(B, S, S, H, D)
     flash_f32 = {"case": flash[-1]["case"], "kernel": route(F32, D).symbol, "ms": f32_ms,
                  "plain_ms": f32_plain_ms, "library_ms": f32_library_ms,
                  "library_call": "torch.nn.functional.scaled_dot_product_attention",
                  "ops": f32_flops, "bound_ms": f32_flops / F32_OPS_PER_S * 1e3,
                  "bound_by": "operations (f32)"}
     del q, k, v, qt, kt, vt, got, want
-    flash_ok = all(c["ok"] for c in flash)
+    # the mma.sync kernel (bf16, D 144-256) at the shapes of the configs
+    # that will take it, beside SDPA and its bound
+    flash_mma = []
+    for name, B, S, H, KVH, D in FLASH_MMA_TIMED:
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(BF16)
+        k = torch.randn((B, S, KVH, D), generator=gen, device="cuda").to(BF16)
+        v = torch.randn((B, S, KVH, D), generator=gen, device="cuda").to(BF16)
+        got = flash_attention_cuda(q, k, v, causal=True)
+        case = {"config": name, "case": [B, S, H, KVH, D, True, "bfloat16"],
+                "kernel": route(BF16, D).symbol,
+                **flash_compare(got, flash_ref(q, k, v, causal=True)),
+                "f32p_gap": f32p_gap(got, flash_ref_f32p(q, k, v, causal=True))}
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        flops = flash_flops(B, S, S, H, D)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        case["bound_ms"], case["bound_by"] = bound(flops, nbytes)
+        case.update(
+            ms=time_ms(lambda: flash_attention_cuda(q, k, v, causal=True), TIMED_RUNS),
+            plain_ms=time_ms(lambda: flash_ref(q, k, v, causal=True), 3, warmup=1),
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), TIMED_RUNS),
+            library_call="torch.nn.functional.scaled_dot_product_attention",
+            ops=flops, bytes=nbytes)
+        flash_mma.append(case)
+        del q, k, v, qt, kt, vt, got
+    flash_ok = all(c["ok"] for c in flash + flash_mma)
     if not flash_ok:
-        emit({"phase": "model_kernel_checks", "flash": flash, "ok": False})
+        emit({"phase": "model_kernel_checks", "flash": flash, "flash_mma_timed": flash_mma,
+              "ok": False})
     check(flash_ok, "flash kernel within FLASH_TOL of its plain version in every case")
     ssd_err = 0.0
+    ssd = []
     for b, S, H, P, G, N, chunk, dtype in SSD_CASES:
         x, dt, A, Bm, Cm = ssd_inputs(gen, b, S, H, P, G, N, dtype)
         nc = S // chunk    # the whole chunks of a ragged length
         chunk_args = tuple(t[:, :nc * chunk].reshape(b, nc, chunk, *t.shape[2:]).contiguous()
                            for t in (x, dt, Bm, Cm))
         chunk_args = chunk_args[:2] + (A,) + chunk_args[2:]
-        ssd_err = max(ssd_err, ssd_worst(ssd_chunk_cuda(*chunk_args),
-                                         ssd_chunk_ref(*chunk_args)))
+        kern = ssd_kernel.route(dtype, chunk, P, N)
+        before = {k.symbol: k.launches for k in ssd_kernel.KERNELS}
+        err = ssd_worst(ssd_kernel.ssd_chunk_cuda(*chunk_args), ssd_chunk_ref(*chunk_args))
+        ran = {k.symbol: k.launches - before[k.symbol] for k in ssd_kernel.KERNELS}
+        check(ran == {k.symbol: int(k is kern) for k in ssd_kernel.KERNELS},
+              f"SSD case {(b, S, H, P, G, N, chunk, dtype)} ran {kern.symbol} only: {ran}")
+        ssd.append({"case": [b, S, H, P, G, N, chunk, str(dtype)[6:]], "kernel": kern.symbol,
+                    "max_abs_err": err})
+        ssd_err = max(ssd_err, err)
         y, st = ssd_scan_op(x, dt, A, Bm, Cm, chunk=chunk)      # ragged S: padded
         y_want, st_want = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
         outs = (st,) if dtype == torch.bfloat16 else (y, st)    # y is bf16 then
@@ -524,15 +596,9 @@ def model_kernel_phases(seed: int) -> None:
     torch.cuda.synchronize()
     emit({"phase": "model_kernel_checks", "flash_cases": len(FLASH_CASES),
           "flash_tolerance": {str(k)[6:]: v for k, v in FLASH_TOL.items()},
-          "flash": flash, "flash_f32_zamba2_shape": flash_f32,
-          "ssd_cases": len(SSD_CASES), "ssd_tolerance": SSD_TOL,
+          "flash": flash, "flash_f32_zamba2_shape": flash_f32, "flash_mma_timed": flash_mma,
+          "ssd_cases": len(SSD_CASES), "ssd_tolerance": SSD_TOL, "ssd": ssd,
           "ssd_max_abs_err": ssd_err, "ok": True})
-
-
-def bound(flops: float, nbytes: float):
-    op_ms = flops / BF16_OPS_PER_S * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else "operations"
 
 
 def profile_prefill(prefill, params, tokens) -> dict:
@@ -566,7 +632,7 @@ def zamba2(seed: int) -> list:
     from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import flash_ref
+    from repro_torch.kernels.flash_attention.ref import flash_ref, flash_ref_f32p
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
@@ -587,9 +653,11 @@ def zamba2(seed: int) -> list:
     prefill = make_prefill_step(cfg, ServeConfig())
     kernels = {k.symbol: k for k in (
         pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
-        codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, ssd_kernel.SSD_CHUNK)}
-    # Zamba2's attention (bf16, head dim 80) must take the wgmma kernel
+        codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
+    # Zamba2's attention (bf16, head dim 80) must take the wgmma kernel, its
+    # SSD chunk (bf16, Q 256, P 64, N 64) the tensor-core kernel
     flash = flash_kernel.FLASH_WGMMA
+    ssd = ssd_kernel.SSD_CHUNK_TC
 
     # the main path, once, counting launches and capturing the first
     # flash and SSD-chunk inputs
@@ -620,10 +688,9 @@ def zamba2(seed: int) -> list:
     n_inv = cfg.num_layers // cfg.hybrid.shared_block_every
     check(launches[flash.symbol] == n_inv,
           f"{flash.symbol} launched {n_inv} times in one prefill: {launches}")
-    check(launches[ssd_kernel.SSD_CHUNK.symbol] == cfg.num_layers,
-          f"SSD chunk launched {cfg.num_layers} times in one prefill: {launches}")
-    check(all(n == 0 for s, n in launches.items()
-              if s not in (flash.symbol, ssd_kernel.SSD_CHUNK.symbol)),
+    check(launches[ssd.symbol] == cfg.num_layers,
+          f"{ssd.symbol} launched {cfg.num_layers} times in one prefill: {launches}")
+    check(all(n == 0 for s, n in launches.items() if s not in (flash.symbol, ssd.symbol)),
           f"no other kernel in the prefill: {launches}")
     check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
           f"logits shape {tuple(logits.shape)}")
@@ -653,9 +720,12 @@ def zamba2(seed: int) -> list:
     flash_cmp = flash_compare(flash_out, flash_plain())
     check(flash_cmp["ok"], f"flash at the captured shape: {flash_cmp}")
     flash_err = flash_cmp["max_abs_err"]
+    flash_gap = f32p_gap(flash_out, torch.cat([
+        flash_ref_f32p(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True) for i in range(B)]))
     ssd_args = captured["ssd"]
+    ssd_want = ssd_chunk_ref(*ssd_args)
     ssd_out = ssd_kernel.ssd_chunk_cuda(*ssd_args)
-    ssd_err = ssd_worst(ssd_out, ssd_chunk_ref(*ssd_args))
+    ssd_err = ssd_worst(ssd_out, ssd_want)
     torch.cuda.synchronize()
 
     # decode as repro_torch.launch.serve does it, against prefill of the
@@ -680,7 +750,8 @@ def zamba2(seed: int) -> list:
           "prefill_first_s": first_s, "prefill_s": prefill_s,
           "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
           "prefill_peak_memory_gb": peak_gb, "prefill_logit_max_abs": logit_max,
-          "flash_captured": flash_cmp, "ssd_captured_max_abs_err": ssd_err,
+          "flash_captured": flash_cmp, "flash_captured_f32p_gap": flash_gap,
+          "ssd_captured_max_abs_err": ssd_err,
           "decode_batch": PREFILL_BATCH, "prompt_len": PROMPT_LEN,
           "new_tokens": NEW_TOKENS, "decode_steps": steps, "decode_s": dec["seconds"],
           "decode_tokens_per_s": PREFILL_BATCH * steps / dec["seconds"],
@@ -692,7 +763,7 @@ def zamba2(seed: int) -> list:
     del dec, dec32, want, want32
 
     # timing at the captured shapes
-    flash_flops = 4.0 * B * H * D * sum(min(i + 1, Skv) for i in range(Sq))
+    flash_ops_n = flash_flops(B, Sq, Skv, H, D)
     flash_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     b, nc, Q, Hs, P = ssd_args[0].shape
@@ -700,17 +771,39 @@ def zamba2(seed: int) -> list:
     ssd_flops = b * nc * Hs * (2.0 * (N + P) * Q * (Q + 1) / 2 + 2.0 * P * N * Q)
     ssd_bytes = (sum(t.numel() * t.element_size() for t in ssd_args)
                  + sum(t.numel() * 4 for t in ssd_out))
+
+    # the CUDA-core SSD kernel, the route of f32 and of bf16 shapes off the
+    # tensor-core contract, on the captured inputs in bf16 and in f32
+    core = ssd_kernel.SSD_CHUNK
+    core_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = tuple(t.to(dtype) if t.dtype == torch.bfloat16 else t for t in ssd_args)
+        outs = tuple(torch.empty_like(t) for t in ssd_out)
+        ssd_kernel.launch(outs, *args, kernel=core)
+        err = ssd_worst(outs, ssd_want if dtype == torch.bfloat16 else ssd_chunk_ref(*args))
+        nbytes = (sum(t.numel() * t.element_size() for t in args)
+                  + sum(t.numel() * 4 for t in outs))
+        core_rows.append({
+            "name": "ssd_chunk", "symbol": core.symbol, "dtype": str(dtype)[6:],
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ssd_kernel.launch(outs, *args, kernel=core), TIMED_RUNS),
+            "ops": ssd_flops, "bytes": nbytes,
+            "f32_ops_bound_ms": ssd_flops / F32_OPS_PER_S * 1e3,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        del args, outs
+    emit({"phase": "ssd_chunk_cuda_core", "shape": list(ssd_args[0].shape),
+          "N": ssd_args[3].shape[4], "rows": core_rows})
+    del ssd_want
     rows = []
     for name, kern, run, plain, library, flops, nbytes, err, src, replaces, lib in (
             ("flash_attention", flash,
              lambda: flash_kernel.launch(flash_out, q, k, v, causal=True), flash_plain,
              lambda: torch.nn.functional.scaled_dot_product_attention(
                  qt, kt, vt, is_causal=True, enable_gqa=True),
-             flash_flops, flash_bytes, flash_err, "flash_attention.cu",
+             flash_ops_n, flash_bytes, flash_err, "flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:68",
              "torch.nn.functional.scaled_dot_product_attention"),
-            ("ssd_chunk", ssd_kernel.SSD_CHUNK,
-             lambda: ssd_kernel.launch(ssd_out, *ssd_args),
+            ("ssd_chunk", ssd, lambda: ssd_kernel.launch(ssd_out, *ssd_args),
              lambda: ssd_chunk_ref(*ssd_args), None, ssd_flops, ssd_bytes, ssd_err,
              "ssd_chunk.cu", "src/repro/kernels/ssd_scan/kernel.py:50", None)):
         bound_ms, bound_by = bound(flops, nbytes)
@@ -730,6 +823,7 @@ def zamba2(seed: int) -> list:
     torch.cuda.synchronize()
     check(flash_compare(flash_out, flash_plain())["ok"],
           "flash output unchanged by the timed launches")
+    ssd_worst(ssd_out, ssd_chunk_ref(*ssd_args))
     return rows
 
 

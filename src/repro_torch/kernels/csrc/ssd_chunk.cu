@@ -1,22 +1,62 @@
-// Hand-written Hopper (sm_90a) kernel of the Mamba2 SSD chunk.
+// Hand-written Hopper (sm_90a) kernels of the Mamba2 SSD chunk.
 //
-// Replaces ssd_chunk_pallas (src/repro/kernels/ssd_scan/kernel.py). For one
-// (batch b, chunk c, head h), with Q rows in the chunk, head h reading group
-// g = h / (H / G) of B and C:
+// Replace ssd_chunk_pallas (src/repro/kernels/ssd_scan/kernel.py:50, pallas_call at
+// :55). For one (batch b, chunk c, head h), with Q rows in the chunk, head h reading
+// group g = h / (H / G) of B and C:
 //   a       = dt * A[h],  cum_a = inclusive cumsum of a,  a_total = cum_a[Q-1]
 //   decay   = exp(cum_a[i] - cum_a[j]) for i >= j, else 0
 //   y_intra = ((C . B^T) o decay o dt[j]) . x                      (Q x P)
 //   state   = (x o w)^T . B,  w = exp(a_total - cum_a) * dt        (P x N)
 //   y_decay = exp(cum_a)
-// All four outputs are f32, as in ref.ssd_chunk_ref.
+// All four outputs are f32, as in ref.ssd_chunk_ref, within 1e-4 (atol and rtol) of it.
+// Two kernels, two launchers; the wrapper (repro_torch/kernels/ssd_scan/kernel.py,
+// `route`) picks one by dtype and shape:
 //
-// Bound: at Zamba2-2.7B's prefill shape (b 4, Q 256, 16 chunks, H 80, P 64,
-// N 64) a call moves ~0.6 GB (x in bf16, the f32 y_intra and states) and does
-// ~0.07 TFLOP, so on the tensor cores it would be bound by bytes (~0.18 ms).
-// This first kernel runs its products in f32 on the CUDA cores, which makes
-// the operations its limit (~1 ms at 67 TFLOP/s f32); the f32 products are
-// what holds it within 1e-4 of the plain version. The design keeps every
-// intermediate on chip and reads each input once from device memory:
+//   bf16, Q, P, N multiples of 16, N <= 128, within shared memory  ssd_chunk_tc_kernel
+//   f32, and any other bf16 shape                                  ssd_chunk_kernel
+//
+// Bound: at Zamba2-2.7B's prefill shape (b 4, Q 256, 16 chunks, H 80, P 64, N 64, G 1)
+// a call moves 0.60 GB: the f32 y_intra (335 MB) and states (84 MB), x in bf16 (168 MB);
+// B and C are 2 MB. Its 53.9 GFLOP take 0.80 ms at the 67 TFLOP/s of f32 on the CUDA
+// cores but 0.05 ms on the bf16 tensor cores, so only the tensor cores let the 0.18 ms
+// of bytes (3.35 TB/s) bound it.
+//
+// --- bf16: ssd_chunk_tc_kernel (mma.sync, bf16 hi/lo split) -------------------------
+// The chunk is masked linear attention: S = C . B^T, P = S o decay o dt[j], Y = P . x,
+// flash without the softmax. On Zamba2's path x, B and C arrive in bf16, so C . B^T is
+// exact on the tensor cores (bf16 products, f32 accumulation). The other operand of
+// each of the other two products is f32 (P, and x o w), and bf16 alone misses 1e-4
+// (~70x the tolerance at Zamba2's scales). So each f32 operand v is split as
+// hi = bf16(v), lo = bf16(v - hi), and hi . op + lo . op accumulate into one f32
+// accumulator: two products, not three, since the other operand is exact. hi + lo
+// carries ~16 bits of v's mantissa; the split keeps the error at about a tenth of
+// the tolerance at Zamba2's scales (tests/test_torch_ssd_scan.py models it on the CPU).
+//   - One block of 8 warps per (batch, chunk, group, block of 8 heads of the group):
+//     640 blocks at Zamba2's shape, ~5 to an SM. C and B of the chunk's group are
+//     staged once per block with cp.async (64 KB at N 64, 128 KB at N 128) and serve
+//     all its heads; each head's x tile (Q x P) streams through a double buffer, the
+//     next head's loading while this one computes.
+//   - Before the heads, warp k scans head k's cum_a (one warp's shuffle scan over the
+//     chunk, as in the f32 kernel) and writes a_total and y_decay.
+//   - y_intra: row tiles of 16, a warp taking tiles t and 2*8-1-t (the causal work of
+//     the pair is the same for every warp). For each column tile j <= i, S_ij is
+//     recomputed from shared memory for each head (m16n8k16 from ldmatrix fragments:
+//     C . B^T is ~a third of a head's products and needs no f32 tile to keep); S is
+//     weighted in registers by exp(cum_i - cum_j) and dt[j], masked before the exp
+//     (above the diagonal cum_i - cum_j reaches ~+180 with A = -1, whose exp is inf),
+//     split to hi/lo A fragments (the layout of two n8 accumulators is that of one
+//     A fragment) and multiplied with x (ldmatrix.trans) into the f32 accumulator.
+//     Each warp stores its rows' 64 contiguous floats per (row, head) as float2 pairs
+//     that fill whole 32-byte sectors.
+//   - states: (x o w)^T . B, the A fragment x^T from ldmatrix.trans, widened, weighted
+//     by w in f32 and split hi/lo; B as the B operand (ldmatrix.trans).
+//   - Rows are padded by 16 bytes in shared memory, so the 8 rows an ldmatrix reads
+//     fall in distinct banks.
+//
+// --- f32 (and other bf16 shapes): ssd_chunk_kernel (CUDA cores) ---------------------
+// The products in f32 on the CUDA cores, which makes the operations its limit (~0.8 ms
+// at Zamba2's shape); f32 inputs have no exact tensor-core product. The design keeps
+// every intermediate on chip and reads each input once from device memory:
 //   - the Pallas block holds a whole Q x Q f32 tile (256 KB at Q = 256, more
 //     than a block's 227 KB of shared memory); here rows i and columns j are
 //     tiled by 64, and for each row tile only the column tiles j <= i are
@@ -30,12 +70,10 @@
 //     staged in shared memory (padded rows, float4 reads), x, B and C widened
 //     from bf16 to f32 as they are staged;
 //   - cum_a is one warp's shuffle scan over the chunk.
-// Tensor-core products (a bf16 hi/lo split keeps f32 accuracy) are later work.
 //
-// Every global offset is 64-bit. The extern "C" launcher takes the caller's
-// stream, launches without synchronising, allocates nothing, and returns
-// cudaGetLastError(). The Python wrapper (repro_torch/kernels/ssd_scan/
-// kernel.py) checks every argument before it calls.
+// Every global offset is 64-bit. Each extern "C" launcher takes the caller's stream,
+// launches without synchronising, allocates nothing, and returns a cudaError_t. The
+// Python wrapper checks every argument before it calls.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -229,6 +267,324 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   return cudaGetLastError();
 }
 
+// --- the tensor-core kernel ----------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcHeads = kTcWarps;  // heads per block: warp k scans head k
+constexpr int kTcPad = 8;           // bf16 of padding a row in shared memory
+
+__host__ __device__ constexpr size_t tc_smem_bytes(int Q, int P, int N) {
+  return 2 * static_cast<size_t>(Q) * (N + kTcPad) * sizeof(bf16) +  // C, B
+         2 * static_cast<size_t>(Q) * (P + kTcPad) * sizeof(bf16) +  // x, two buffers
+         2 * static_cast<size_t>(kTcHeads) * Q * sizeof(float);     // cum_a, dt
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The pair (u, v) as bf16 hi = bf16(.) and lo = bf16(. - hi), u in the low halves.
+__device__ __forceinline__ void split2(float u, float v, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(u - hf.x, v - hf.y));
+}
+
+__device__ __forceinline__ float2 widen(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
+}
+
+// Stage the Q x P tile of head h of the chunk (rows x_stride apart) into dst, row
+// pitch P + kTcPad.
+__device__ __forceinline__ void stage_x(bf16* dst, const bf16* src, long long x_stride, int Q,
+                                        int P) {
+  const int chunks = P / 8;  // 16-byte pieces a row
+  for (int c = threadIdx.x; c < Q * chunks; c += kTcThreads) {
+    const int r = c / chunks, col = (c % chunks) * 8;
+    cp_async_16(smem_addr(dst + r * (P + kTcPad) + col), src + r * x_stride + col);
+  }
+}
+
+// y_intra of one head: this warp's row tiles, all P columns.
+template <int N>
+__device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const bf16* sX,
+                                           const float* cum, const float* dts, float* yb,
+                                           long long y_stride, int Q, int P) {
+  constexpr int LDN = N + kTcPad;
+  const int LDP = P + kTcPad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n_tiles = Q / 16;
+  for (int round = 0; round * kTcWarps < n_tiles; ++round) {
+    // rounds alternate direction, so that a warp's tiles t and 2*8-1-t pair up
+    const int it = round * kTcWarps + ((round & 1) ? kTcWarps - 1 - warp : warp);
+    if (it >= n_tiles) continue;
+    const int i0 = it * 16, ra = i0 + g, rb = ra + 8;
+    const float cum_a = cum[ra], cum_b = cum[rb];
+    uint32_t cf[N / 16][4];  // C rows i0..i0+15 as A fragments
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      ldmatrix_x4(smem_addr(sC + (i0 + (lane & 15)) * LDN + kk * 16 + (lane >> 4) * 8), cf[kk]);
+    for (int p0 = 0; p0 < P; p0 += 64) {
+      float acc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      for (int jt = 0; jt <= it; ++jt) {
+        const int j0 = jt * 16;
+        // S = C_i . B_j^T, 16 x 16 as two n8 accumulators
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) {
+          uint32_t b[4];
+          ldmatrix_x4(smem_addr(sB + (j0 + (lane >> 4) * 8 + (lane & 7)) * LDN + kk * 16 +
+                                ((lane >> 3) & 1) * 8),
+                      b);
+          mma_bf16(s[0], cf[kk], b[0], b[1]);
+          mma_bf16(s[1], cf[kk], b[2], b[3]);
+        }
+        // weight by decay and dt[j], masked before the exp; split into hi/lo
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const int j = j0 + nb * 8 + 2 * tq;
+          const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+          const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+          const float v0 = ra >= j ? s[nb][0] * expf(cum_a - cj.x) * dj.x : 0.f;
+          const float v1 = ra >= j + 1 ? s[nb][1] * expf(cum_a - cj.y) * dj.y : 0.f;
+          const float v2 = rb >= j ? s[nb][2] * expf(cum_b - cj.x) * dj.x : 0.f;
+          const float v3 = rb >= j + 1 ? s[nb][3] * expf(cum_b - cj.y) * dj.y : 0.f;
+          split2(v0, v1, hi[2 * nb], lo[2 * nb]);          // row g, k 8 nb + 2 tq
+          split2(v2, v3, hi[2 * nb + 1], lo[2 * nb + 1]);  // row g + 8
+        }
+        // Y += P . x_j, hi and lo into one accumulator
+#pragma unroll
+        for (int pn = 0; pn < 4; ++pn) {
+          if (p0 + pn * 16 >= P) break;
+          uint32_t b[4];
+          ldmatrix_x4_trans(smem_addr(sX + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP +
+                                      p0 + pn * 16 + (lane >> 4) * 8),
+                            b);
+          mma_bf16(acc[2 * pn], hi, b[0], b[1]);
+          mma_bf16(acc[2 * pn], lo, b[0], b[1]);
+          mma_bf16(acc[2 * pn + 1], hi, b[2], b[3]);
+          mma_bf16(acc[2 * pn + 1], lo, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = p0 + n * 8 + 2 * tq;
+        if (col >= P) break;
+        *reinterpret_cast<float2*>(yb + ra * y_stride + col) = make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(yb + rb * y_stride + col) = make_float2(acc[n][2], acc[n][3]);
+      }
+    }
+  }
+}
+
+// states of one head: (x o w)^T . B, this warp's (16 p x 32 n) units.
+template <int N>
+__device__ __forceinline__ void tc_states(const bf16* sB, const bf16* sX, const float* cum,
+                                          const float* dts, float* st, int Q, int P) {
+  constexpr int LDN = N + kTcPad;
+  constexpr int kGroups = (N + 31) / 32;
+  const int LDP = P + kTcPad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const float total = cum[Q - 1];
+  for (int u = warp; u < (P / 16) * kGroups; u += kTcWarps) {
+    const int p0 = (u / kGroups) * 16, n0 = (u % kGroups) * 32;
+    float acc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int j0 = 0; j0 < Q; j0 += 16) {
+      // A = x^T (rows p, k = j) from ldmatrix.trans, times w[j] in f32, split
+      uint32_t a[4];
+      ldmatrix_x4_trans(smem_addr(sX + (j0 + (lane & 7) + (lane >> 4) * 8) * LDP + p0 +
+                                  ((lane >> 3) & 1) * 8),
+                        a);
+      const int ja = j0 + 2 * tq, jb = ja + 8;
+      const float w0 = expf(total - cum[ja]) * dts[ja];
+      const float w1 = expf(total - cum[ja + 1]) * dts[ja + 1];
+      const float w2 = expf(total - cum[jb]) * dts[jb];
+      const float w3 = expf(total - cum[jb + 1]) * dts[jb + 1];
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 xv = widen(a[r]);
+        const bool high_k = r >= 2;  // a[2], a[3]: k 8..15
+        split2(xv.x * (high_k ? w2 : w0), xv.y * (high_k ? w3 : w1), hi[r], lo[r]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        if (n0 + nb * 16 >= N) break;
+        uint32_t b[4];
+        ldmatrix_x4_trans(smem_addr(sB + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN + n0 +
+                                    nb * 16 + (lane >> 4) * 8),
+                          b);
+        mma_bf16(acc[2 * nb], hi, b[0], b[1]);
+        mma_bf16(acc[2 * nb], lo, b[0], b[1]);
+        mma_bf16(acc[2 * nb + 1], hi, b[2], b[3]);
+        mma_bf16(acc[2 * nb + 1], lo, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int col = n0 + n * 8 + 2 * tq;
+      if (col >= N) break;
+      *reinterpret_cast<float2*>(st + (p0 + g) * N + col) = make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(st + (p0 + g + 8) * N + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kTcThreads, 1)
+ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const bf16* __restrict__ Bg,
+                    const bf16* __restrict__ Cg, float* __restrict__ y,
+                    float* __restrict__ states, float* __restrict__ a_total,
+                    float* __restrict__ y_decay, int nc, int Q, int H, int P, int G,
+                    int head_blocks) {
+  constexpr int LDN = N + kTcPad;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sC = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sB = sC + Q * LDN;
+  bf16* sX0 = sB + Q * LDN;
+  bf16* sX1 = sX0 + Q * (P + kTcPad);
+  float* sCum = reinterpret_cast<float*>(sX1 + Q * (P + kTcPad));  // [kTcHeads][Q]
+  float* sDt = sCum + kTcHeads * Q;                                   // [kTcHeads][Q]
+
+  const int g = blockIdx.x / head_blocks, hb = blockIdx.x % head_blocks;
+  const int rep = H / G;
+  const int h0 = g * rep + hb * kTcHeads;
+  const int nh = min(kTcHeads, rep - hb * kTcHeads);
+  const long long chunk = static_cast<long long>(blockIdx.z) * nc + blockIdx.y;
+  const long long row0 = chunk * Q;  // first row of the chunk in (b, nc, Q)
+  const long long x_stride = static_cast<long long>(H) * P;
+  const long long bc_stride = static_cast<long long>(G) * N;
+  const bf16* xb = x + row0 * x_stride + static_cast<long long>(h0) * P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // 1. C and B of the group, then head h0's x, in flight while the scans run
+  {
+    const bf16* Cb = Cg + row0 * bc_stride + static_cast<long long>(g) * N;
+    const bf16* Bb = Bg + row0 * bc_stride + static_cast<long long>(g) * N;
+    constexpr int chunks = N / 8;
+    for (int c = tid; c < Q * chunks; c += kTcThreads) {
+      const int r = c / chunks, col = (c % chunks) * 8;
+      cp_async_16(smem_addr(sC + r * LDN + col), Cb + r * bc_stride + col);
+      cp_async_16(smem_addr(sB + r * LDN + col), Bb + r * bc_stride + col);
+    }
+  }
+  stage_x(sX0, xb, x_stride, Q, P);
+  cp_async_commit();
+
+  // 2. cum_a of head h0 + k by warp k; a_total and y_decay
+  for (int e = tid; e < Q * kTcHeads; e += kTcThreads) {
+    const int i = e / kTcHeads, hl = e % kTcHeads;
+    if (hl < nh) sDt[hl * Q + i] = dt[(row0 + i) * H + h0 + hl];
+  }
+  __syncthreads();
+  if (warp < nh) {
+    const int h = h0 + warp;
+    const float* dts = sDt + warp * Q;
+    float* cum = sCum + warp * Q;
+    const float a_h = A[h];
+    float carry = 0.f;
+    for (int base = 0; base < Q; base += 32) {
+      const int i = base + lane;
+      float v = i < Q ? dts[i] * a_h : 0.f;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += u;
+      }
+      v += carry;
+      if (i < Q) cum[i] = v;
+      carry = __shfl_sync(0xffffffffu, v, 31);
+    }
+    __syncwarp();
+    if (lane == 0) a_total[chunk * H + h] = cum[Q - 1];
+    for (int i = lane; i < Q; i += 32) y_decay[(row0 + i) * H + h] = expf(cum[i]);
+  }
+
+  // 3. the heads, x double-buffered
+  for (int hl = 0; hl < nh; ++hl) {
+    bf16* sX = (hl & 1) ? sX1 : sX0;
+    if (hl + 1 < nh) {
+      stage_x((hl & 1) ? sX0 : sX1, xb + (hl + 1) * P, x_stride, Q, P);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // head hl's x (and C, B, the scans) visible to every warp
+    const int h = h0 + hl;
+    tc_y_intra<N>(sC, sB, sX, sCum + hl * Q, sDt + hl * Q, y + row0 * x_stride +
+                  static_cast<long long>(h) * P, x_stride, Q, P);
+    tc_states<N>(sB, sX, sCum + hl * Q, sDt + hl * Q,
+                 states + (chunk * H + h) * static_cast<long long>(P) * N, Q, P);
+    __syncthreads();  // every warp is done with sX before it is loaded again
+  }
+}
+
+template <int N>
+int launch_tc(const void* x, const void* dt, const void* A, const void* B, const void* C,
+              void* y, void* states, void* a_total, void* y_decay, int b, int nc, int Q, int H,
+              int P, int G, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(Q, P, N);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_tc_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int head_blocks = (H / G + kTcHeads - 1) / kTcHeads;
+  const dim3 grid(head_blocks * G, nc, b);
+  ssd_chunk_tc_kernel<N><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const bf16*>(B), static_cast<const bf16*>(C), static_cast<float*>(y),
+      static_cast<float*>(states), static_cast<float*>(a_total), static_cast<float*>(y_decay),
+      nc, Q, H, P, G, head_blocks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (b, nc, Q, H, P) and B, C (b, nc, Q, G, N) in bf16 (in_bf16 = 1) or f32;
@@ -244,4 +600,26 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A, const
                                  N, stream);
   return launch<float>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G, N,
                        stream);
+}
+
+// x (b, nc, Q, H, P) and B, C (b, nc, Q, G, N) in bf16, 16-byte aligned; dt (b, nc, Q,
+// H) and A (H,) f32; outputs as ssd_chunk_fwd's. Q, P and N multiples of 16, N <= 128,
+// and the kernel's shared memory (tc_smem_bytes) within the block's 227 KB; any other
+// shape returns cudaErrorInvalidValue.
+extern "C" int ssd_chunk_fwd_tc(const void* x, const void* dt, const void* A, const void* B,
+                                const void* C, void* y, void* states, void* a_total,
+                                void* y_decay, int b, int nc, int Q, int H, int P, int G, int N,
+                                cudaStream_t stream) {
+  if (Q % 16 || P % 16 || tc_smem_bytes(Q, P, N) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (N) {
+#define SSD_TC_CASE(n) \
+  case n:              \
+    return launch_tc<n>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G, stream);
+    SSD_TC_CASE(16) SSD_TC_CASE(32) SSD_TC_CASE(48) SSD_TC_CASE(64)
+    SSD_TC_CASE(80) SSD_TC_CASE(96) SSD_TC_CASE(112) SSD_TC_CASE(128)
+#undef SSD_TC_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -16,11 +16,15 @@ dtype and head dim pick one (``route``):
 
 Every kernel reads kv-head ``h // (H // KVH)`` (no repeat) and keeps the
 softmax statistics in f32. The head dim is a multiple of 16 up to 256.
+The scores are scaled by ``scale``, 1/sqrt(D) unless the caller gives
+another (``models.attention.attention_op`` pads the head dim to a multiple
+of 16 and passes the scale of the true one).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -50,18 +54,20 @@ def route(dtype: torch.dtype, head_dim: int) -> _build.Kernel:
 
 
 def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor, *, causal: bool) -> None:
+           v: torch.Tensor, *, causal: bool, scale: Optional[float] = None
+           ) -> None:
     """Launch into ``out`` without checks: only for tensors that
     ``flash_attention_cuda`` has accepted."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     route(q.dtype, D)(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal),
-                      1.0 / math.sqrt(D))
+                      1.0 / math.sqrt(D) if scale is None else scale)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True, scale: Optional[float] = None
+                         ) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, KVH, D), all bf16 or all f32, on
     the card -> (B, Sq, H, D) in their dtype."""
     check_attention(q, k, v, KERNEL_DTYPES)
@@ -73,5 +79,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must start on 16-byte boundaries "
                          "(the kernels copy rows in 16-byte pieces)")
     out = torch.empty_like(q)
-    launch(out, q, k, v, causal=causal)
+    launch(out, q, k, v, causal=causal, scale=scale)
     return out

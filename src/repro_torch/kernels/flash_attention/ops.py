@@ -5,6 +5,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels._checks import check_attention
@@ -14,10 +16,11 @@ from repro_torch.kernels.flash_attention.ref import flash_ref
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       *, causal: bool = True) -> torch.Tensor:
+                       *, causal: bool = True, scale: Optional[float] = None
+                       ) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> (B, Sq, H, D) in q's
-    dtype."""
+    dtype. The scores are scaled by ``scale``, 1/sqrt(D) unless given."""
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal)
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
     check_attention(q, k, v, KERNEL_DTYPES)
-    return flash_ref(q, k, v, causal=causal)
+    return flash_ref(q, k, v, causal=causal, scale=scale)

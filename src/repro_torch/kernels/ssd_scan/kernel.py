@@ -1,13 +1,21 @@
-"""CUDA kernel for the SSD chunk, the port of
+"""CUDA kernels for the SSD chunk, the port of
 ``repro.kernels.ssd_scan.kernel.ssd_chunk_pallas``.
 
-``ssd_chunk_fwd`` in ``csrc/ssd_chunk.cu``: one block per (head, chunk,
-batch) computes the four outputs of ``ref.ssd_chunk_ref`` in f32 on the
-CUDA cores, tiling the chunk's rows and columns by 64 so that no Q x Q
-tile is held (the Pallas block keeps one in VMEM). B and C are read
-through the group index ``h // (H // G)`` from their (b, nc, Q, G, N)
-layout; no repeat to H heads is made. x, B and C are bf16 or f32; dt
-and A are f32; every output is f32.
+``csrc/ssd_chunk.cu`` holds two kernels, one launcher each; the dtype and
+shape pick one (``route``):
+
+- bf16 with Q, P and N multiples of 16, N at most 128 and the block's
+  shared memory within the card's 227 KB: ``ssd_chunk_fwd_tc``. One
+  block per (batch, chunk, group, 8 heads of the group) stages C and B
+  once and runs the three products on the tensor cores (``mma.sync``),
+  the f32 operand of two of them split into bf16 hi and lo parts, which
+  keeps the f32 outputs within 1e-4 of the plain version.
+- f32, and every other bf16 shape: ``ssd_chunk_fwd``, one block per
+  (head, chunk, batch), f32 products on the CUDA cores in 64 x 64 tiles.
+
+Both compute the four outputs of ``ref.ssd_chunk_ref`` in f32. B and C
+are read through the group index ``h // (H // G)`` from their (b, nc, Q,
+G, N) layout; no repeat to H heads is made. dt and A are f32.
 """
 
 from __future__ import annotations
@@ -20,25 +28,53 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (GRID_YZ_MAX, check_ssd_chunk,
                                          require_cuda)
 
-#: dtypes of x, B and C the kernel takes (dt and A are float32)
+#: dtypes of x, B and C the kernels take (dt and A are float32)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-#: longest chunk: the per-row f32 arrays share the block's shared memory
+#: longest chunk of the CUDA-core kernel: the per-row f32 arrays share the
+#: block's shared memory
 MAX_CHUNK = 4096
+#: the tensor-core kernel: its largest state width, its heads a block, the
+#: bf16 padding of a row in shared memory, and a block's shared memory
+TC_MAX_N = 128
+TC_HEADS = 8
+TC_PAD = 8
+SMEM_MAX = 232448
 
-SSD_CHUNK = _build.Kernel("ssd_chunk", "ssd_chunk_fwd",
-                          [_build.P] * 9 + [_build.I32] * 8)
+_ARGS = [_build.P] * 9 + [_build.I32] * 7
+SSD_CHUNK_TC = _build.Kernel("ssd_chunk", "ssd_chunk_fwd_tc", _ARGS)
+SSD_CHUNK = _build.Kernel("ssd_chunk", "ssd_chunk_fwd", _ARGS + [_build.I32])
+KERNELS = (SSD_CHUNK_TC, SSD_CHUNK)
 
 
-def launch(outs, xq, dtq, A, Bq, Cq) -> None:
-    """Launch into ``outs`` = (y_intra, states, a_total, y_decay) without
-    checks: only for tensors that ``ssd_chunk_cuda`` has accepted."""
+def tc_smem_bytes(Q: int, P: int, N: int) -> int:
+    """Shared memory of a tensor-core block (``tc_smem_bytes`` in the
+    source): C and B, two buffers of x, and cum_a and dt of its heads."""
+    return 2 * Q * (N + TC_PAD) * 2 + 2 * Q * (P + TC_PAD) * 2 + 2 * TC_HEADS * Q * 4
+
+
+def route(dtype: torch.dtype, Q: int, P: int, N: int) -> _build.Kernel:
+    """The kernel that serves x, B and C of this dtype and a chunk of Q
+    rows, head dim P and state width N."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"no SSD chunk kernel takes {dtype}")
+    if (dtype == torch.bfloat16 and Q % 16 == 0 and P % 16 == 0 and N % 16 == 0
+            and N <= TC_MAX_N and tc_smem_bytes(Q, P, N) <= SMEM_MAX):
+        return SSD_CHUNK_TC
+    return SSD_CHUNK
+
+
+def launch(outs, xq, dtq, A, Bq, Cq, kernel=None) -> None:
+    """Launch ``kernel`` (default: the routed one) into ``outs`` =
+    (y_intra, states, a_total, y_decay) without checks: only for tensors
+    that ``ssd_chunk_cuda`` has accepted."""
     b, nc, Q, H, P = xq.shape
     G, N = Bq.shape[3], Bq.shape[4]
-    y, st, at, yd = outs
-    SSD_CHUNK(xq.device, xq.data_ptr(), dtq.data_ptr(), A.data_ptr(),
-              Bq.data_ptr(), Cq.data_ptr(), y.data_ptr(), st.data_ptr(),
-              at.data_ptr(), yd.data_ptr(), b, nc, Q, H, P, G, N,
-              int(xq.dtype == torch.bfloat16))
+    kernel = route(xq.dtype, Q, P, N) if kernel is None else kernel
+    args = [xq.data_ptr(), dtq.data_ptr(), A.data_ptr(), Bq.data_ptr(),
+            Cq.data_ptr(), *(t.data_ptr() for t in outs), b, nc, Q, H, P, G, N]
+    if kernel is SSD_CHUNK:
+        args.append(int(xq.dtype == torch.bfloat16))
+    kernel(xq.device, *args)
 
 
 def ssd_chunk_cuda(xq: torch.Tensor, dtq: torch.Tensor, A: torch.Tensor,
@@ -54,6 +90,10 @@ def ssd_chunk_cuda(xq: torch.Tensor, dtq: torch.Tensor, A: torch.Tensor,
                          f"at most {MAX_CHUNK} rows and at most "
                          f"{GRID_YZ_MAX} chunks and batch rows")
     N = Bq.shape[4]
+    if (route(xq.dtype, Q, P, N) is SSD_CHUNK_TC
+            and any(t.data_ptr() % 16 for t in (xq, Bq, Cq))):
+        raise ValueError("xq, Bq and Cq must start on 16-byte boundaries "
+                         "(the kernel copies rows in 16-byte pieces)")
     f32 = dict(dtype=torch.float32, device=xq.device)
     outs = (torch.empty((b, nc, Q, H, P), **f32),
             torch.empty((b, nc, H, P, N), **f32),

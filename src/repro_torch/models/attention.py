@@ -9,7 +9,10 @@ version on CPU tensors.
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.flash_attention.ref import NEG_INF, dense_attention
@@ -26,7 +29,11 @@ def attention_op(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                  kv_len=None) -> torch.Tensor:
     """Dense attention when ``kv_len`` is given or
     ``max(Sq, Skv) <= cfg.flash_min_seq``, else the flash op. The flash
-    kernel has no query offset, so the flash branch refuses one."""
+    kernel has no query offset, so the flash branch refuses one. It takes
+    head dims that are multiples of 16, so another head dim D is zero-padded
+    to the next one (zeros add nothing to q . k, and V's zero columns are
+    sliced off) and the scale stays 1/sqrt(D), as the JAX flash branch
+    computes it for any D."""
     Sq, Skv = q.shape[1], k.shape[1]
     if kv_len is not None or max(Sq, Skv) <= cfg.flash_min_seq:
         return dense_attention(q, k, v, causal=causal, q_offset=q_offset,
@@ -35,7 +42,13 @@ def attention_op(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"the flash branch (max(Sq, Skv) = {max(Sq, Skv)} "
                          f"> flash_min_seq {cfg.flash_min_seq}) takes no "
                          f"query offset, got q_offset={q_offset!r}")
-    return flash_attention_op(q, k, v, causal=causal)
+    D = q.shape[-1]
+    pad = (-D) % 16
+    if pad == 0:
+        return flash_attention_op(q, k, v, causal=causal)
+    q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    out = flash_attention_op(q, k, v, causal=causal, scale=1.0 / math.sqrt(D))
+    return out[..., :D]
 
 
 class Attention(ParamModule):

@@ -1,7 +1,9 @@
 """The port's flash attention against the JAX package: its plain version
 and public op against ``flash_attention_pallas`` in interpret mode and
-the JAX ``flash_ref``, dense attention with a query offset and a kv
-length, and the dense/flash dispatch of ``attention_op``. Inputs are made
+the JAX ``flash_ref``, the f32-probability plain version against the JAX
+flash and the Pallas kernel, dense attention with a query offset and a kv
+length, and the dense/flash dispatch of ``attention_op`` (head dims off a
+multiple of 16 included). Inputs are made
 with numpy from a seed. The kernel itself is held against the plain
 version on the card (``cuda`` marker; skips elsewhere):
 
@@ -18,11 +20,12 @@ import numpy as np
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import flash_ref as jax_flash_ref
 from repro.models import attention as jattn
+from repro.models import flash as jflash
 from repro.models.common import ModelConfig as JaxModelConfig
 from repro_torch.interop import to_numpy, to_torch
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.kernels.flash_attention.ref import flash_ref
+from repro_torch.kernels.flash_attention.ref import flash_ref, flash_ref_f32p
 from repro_torch.models import attention
 from repro_torch.models.common import ModelConfig
 
@@ -117,6 +120,55 @@ def test_attention_op_takes_flash_above_flash_min_seq(monkeypatch):
     assert calls == [32]
     with pytest.raises(ValueError, match="q_offset"):
         attention.attention_op(cfg, q, k, v, causal=True, q_offset=3)
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,causal", [
+    pytest.param(2, 256, 4, 4, 64, True, id="mha"),
+    pytest.param(1, 200, 4, 1, 80, True, id="mqa-ragged-d80"),
+    pytest.param(1, 192, 4, 2, 32, False, id="gqa-non-causal"),
+    pytest.param(1, 130, 2, 2, 24, True, id="d24"),
+])
+def test_flash_ref_f32p_matches_jax_flash_and_pallas(B, S, H, KVH, D, causal):
+    q, k, v = _qkv(B, S, H, KVH, D, "float32")
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want_flash = np.asarray(jflash.flash_attention(jq, jk, jv, causal=causal,
+                                                   q_chunk=64, kv_chunk=64))
+    want_pallas = np.asarray(flash_attention_pallas(jq, jk, jv, causal=causal, q_tile=64,
+                                                    kv_tile=64, interpret=True))
+    got = flash_ref_f32p(*to_torch((q, k, v), device="cpu"), causal=causal)
+    assert got.dtype == torch.float32 and tuple(got.shape) == q.shape
+    # f32 throughout: the same math in another order
+    np.testing.assert_allclose(to_numpy(got), want_flash, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(to_numpy(got), want_pallas, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [24, 40])
+def test_attention_op_flash_branch_takes_head_dims_off_16(monkeypatch, D, dtype):
+    """deepseek-v2-lite smoke's MLA has q/k head dim 24: the flash branch
+    pads it to 32 and keeps the scale 1/sqrt(24), as the JAX branch
+    computes it."""
+    kw = dict(name="t", kind="hybrid", num_layers=2, d_model=64, num_heads=4,
+              num_kv_heads=2, d_ff=8, vocab_size=8, flash_min_seq=16)
+    seen = []
+
+    def spy(q, k, v, *, causal, scale=None):
+        seen.append((q.shape[-1], scale))
+        return flash_attention_op(q, k, v, causal=causal, scale=scale)
+
+    monkeypatch.setattr(attention, "flash_attention_op", spy)
+    q, k, v = _qkv(2, 40, 4, 2, D, dtype)
+    got = attention.attention_op(ModelConfig(**kw), *to_torch((q, k, v), device="cpu"),
+                                 causal=True)
+    want = jattn.attention_op(JaxModelConfig(**kw), *(jnp.asarray(a) for a in (q, k, v)),
+                              causal=True)
+    assert seen == [(-(-D // 16) * 16, 1.0 / np.sqrt(D))]
+    assert got.shape == (2, 40, 4, D) and str(got.dtype) == f"torch.{dtype}"
+    np.testing.assert_allclose(to_numpy(got.float()), np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=0)
+    # the op itself still refuses the head dim
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention_op(*to_torch((q, k, v), device="cpu"), causal=True)
 
 
 # --- on the card --------------------------------------------------------------

@@ -1,9 +1,11 @@
 """The port's chunked SSD against the JAX package: the plain per-chunk
 terms against ``ssd_chunk_ref`` and ``ssd_chunk_pallas`` in interpret
 mode, ``ssd_scan_op`` against the JAX op through its Pallas kernel and
-against ``ssd_reference``, and ``ssd_chunked`` with an initial state.
-Inputs are made with numpy from a seed. The kernel itself is held against
-the plain version on the card (``cuda`` marker; skips elsewhere):
+against ``ssd_reference``, and ``ssd_chunked`` with an initial state; a
+plain model of the tensor-core kernel's bf16 hi/lo split against the JAX
+``ssd_chunk_ref``, and the route between the two kernels. Inputs are made
+with numpy from a seed. The kernels themselves are held against the plain
+version on the card (``cuda`` marker; skips elsewhere):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_ssd_scan.py
 """
@@ -127,6 +129,83 @@ def test_ssd_chunked_with_initial_state_matches_jax(chunk):
     _close(st, st_w)
 
 
+def _split(v):
+    """v (f32) as bf16 hi = bf16(v) and lo = bf16(v - hi), both widened."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+def _tc_model(xq, dtq, A, Bq, Cq, split=_split):
+    """The tensor-core kernel's arithmetic for G = 1 in plain torch: C.B^T
+    from the bf16 values with f32 sums (bf16 products are exact in f32),
+    the weighted scores and x o w in f32, each split by ``split`` into
+    parts whose products with the exact operand add up in f32."""
+    x, B, C = xq.float(), Bq[:, :, :, 0].float(), Cq[:, :, :, 0].float()
+    Q = x.shape[2]
+    cum = torch.cumsum(dtq * A, dim=2)                           # (b,nc,Q,H)
+    total = cum[:, :, -1]
+    causal = torch.ones(Q, Q).tril().bool()[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    decay = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", C, B)[..., None]
+    scores = cb * decay * dtq[:, :, None, :, :]                  # (b,nc,Q,Q,H)
+    y = sum(torch.einsum("bcijh,bcjhp->bcihp", part, x) for part in split(scores))
+    xw = x * (torch.exp(total[:, :, None, :] - cum) * dtq)[..., None]
+    states = sum(torch.einsum("bcjhp,bcjn->bchpn", part, B) for part in split(xw))
+    return y, states
+
+
+@pytest.mark.parametrize("N", [64, 128], ids=["zamba2-n64", "mamba2-n128"])
+def test_tc_split_arithmetic_within_ssd_tol_of_jax_ref(N):
+    """Q 256, P 64, at chip_smoke.py's input scales (A = -1, dt a softplus,
+    B and C at N**-0.25, x, B and C in bf16): the two-term split holds
+    y_intra and states within 1e-4 of the JAX reference; bf16 alone does
+    not, which is why the kernel splits."""
+    b, nc, Q, H, P = 1, 2, 256, 4, 64
+    rng = np.random.default_rng(16)
+    xq = rng.standard_normal((b, nc, Q, H, P)).astype(np.float32)
+    dtq = np.log1p(np.exp(rng.standard_normal((b, nc, Q, H)) - 1.0)).astype(np.float32)
+    A = -np.ones(H, np.float32)
+    Bq = (rng.standard_normal((b, nc, Q, 1, N)) * N ** -0.25).astype(np.float32)
+    Cq = (rng.standard_normal((b, nc, Q, 1, N)) * N ** -0.25).astype(np.float32)
+    t = to_torch((xq, dtq, A, Bq, Cq), device="cpu")
+    t = (t[0].bfloat16(), t[1], t[2], t[3].bfloat16(), t[4].bfloat16())
+    # the JAX reference on the same bf16 values, B and C repeated to H heads
+    jargs = [jnp.asarray(to_numpy(v.float())) for v in t]
+    jargs[3], jargs[4] = (jnp.repeat(v, H, axis=3) for v in jargs[3:])
+    y_want, st_want = (np.asarray(v) for v in jax_ssd_chunk_ref(*jargs)[:2])
+    y, st = _tc_model(*t)
+    _close(y, y_want)
+    _close(st, st_want)
+    y1, st1 = _tc_model(*t, split=lambda v: (v.bfloat16().float(),))
+    assert not np.allclose(to_numpy(y1), y_want, atol=ATOL, rtol=RTOL)
+    assert not np.allclose(to_numpy(st1), st_want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype,Q,P,N,symbol", [
+    (torch.bfloat16, 256, 64, 64, "ssd_chunk_fwd_tc"),      # Zamba2-2.7B
+    (torch.bfloat16, 256, 64, 128, "ssd_chunk_fwd_tc"),     # mamba2-130m
+    (torch.bfloat16, 16, 16, 16, "ssd_chunk_fwd_tc"),
+    (torch.bfloat16, 64, 80, 32, "ssd_chunk_fwd_tc"),
+    (torch.bfloat16, 256, 64, 40, "ssd_chunk_fwd"),         # N off 16
+    (torch.bfloat16, 100, 64, 64, "ssd_chunk_fwd"),         # Q off 16
+    (torch.bfloat16, 256, 8, 64, "ssd_chunk_fwd"),          # P off 16
+    (torch.bfloat16, 256, 64, 144, "ssd_chunk_fwd"),        # N above 128
+    (torch.bfloat16, 512, 64, 64, "ssd_chunk_fwd"),         # shared memory
+    (torch.float32, 256, 64, 64, "ssd_chunk_fwd"),
+])
+def test_route_picks_the_kernel_by_dtype_and_shape(dtype, Q, P, N, symbol):
+    assert ssd_kernel.route(dtype, Q, P, N).symbol == symbol
+
+
+def test_route_refuses_other_dtypes_and_sizes_shared_memory():
+    with pytest.raises(ValueError, match="float16"):
+        ssd_kernel.route(torch.float16, 256, 64, 64)
+    # Zamba2's block and mamba2-130m's, against the block's 227 KB
+    assert ssd_kernel.tc_smem_bytes(256, 64, 64) == 163840
+    assert ssd_kernel.tc_smem_bytes(256, 64, 128) == 229376 <= ssd_kernel.SMEM_MAX
+
+
 # --- on the card --------------------------------------------------------------
 
 @pytest.fixture
@@ -137,14 +216,20 @@ def cuda_gen():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,nc,Q,H,P,G,N,dtype", [
-    (2, 3, 256, 4, 64, 1, 64, torch.bfloat16),
-    (1, 2, 256, 4, 64, 2, 128, torch.bfloat16),
-    (2, 2, 64, 6, 64, 2, 64, torch.float32),
-    (1, 2, 100, 2, 80, 1, 72, torch.float32),     # ragged tiles everywhere
-    (1, 1, 16, 2, 8, 1, 16, torch.float32),
+@pytest.mark.parametrize("b,nc,Q,H,P,G,N,dtype,symbol", [
+    (2, 3, 256, 4, 64, 1, 64, torch.bfloat16, "ssd_chunk_fwd_tc"),
+    (1, 2, 256, 4, 64, 2, 128, torch.bfloat16, "ssd_chunk_fwd_tc"),
+    (2, 2, 64, 6, 64, 2, 64, torch.float32, "ssd_chunk_fwd"),
+    (1, 2, 100, 2, 80, 1, 72, torch.float32, "ssd_chunk_fwd"),   # ragged tiles everywhere
+    (1, 1, 16, 2, 8, 1, 16, torch.float32, "ssd_chunk_fwd"),
+    (1, 2, 256, 80, 64, 1, 64, torch.bfloat16, "ssd_chunk_fwd_tc"),   # Zamba2's chunk
+    (1, 2, 256, 24, 64, 1, 128, torch.bfloat16, "ssd_chunk_fwd_tc"),  # mamba2-130m's
+    (2, 5, 64, 12, 32, 2, 16, torch.bfloat16, "ssd_chunk_fwd_tc"),    # ragged nc, 6 heads a group
+    (1, 2, 128, 4, 80, 1, 48, torch.bfloat16, "ssd_chunk_fwd_tc"),    # P past 64
+    (1, 2, 256, 4, 64, 1, 40, torch.bfloat16, "ssd_chunk_fwd"),       # N off the contract
 ])
-def test_ssd_chunk_kernel_matches_plain_on_card(cuda_gen, b, nc, Q, H, P, G, N, dtype):
+def test_ssd_chunk_kernel_matches_plain_on_card(cuda_gen, b, nc, Q, H, P, G, N, dtype,
+                                                symbol):
     def randn(*shape):
         return torch.randn(shape, generator=cuda_gen, device="cuda")
     xq = randn(b, nc, Q, H, P).to(dtype)
@@ -154,10 +239,11 @@ def test_ssd_chunk_kernel_matches_plain_on_card(cuda_gen, b, nc, Q, H, P, G, N, 
     # then differ by ~1e-5 of the values
     Bq = (randn(b, nc, Q, G, N) * N ** -0.25).to(dtype)
     Cq = (randn(b, nc, Q, G, N) * N ** -0.25).to(dtype)
-    before = ssd_kernel.SSD_CHUNK.launches
+    before = {k.symbol: k.launches for k in ssd_kernel.KERNELS}
     got = ssd_kernel.ssd_chunk_cuda(xq, dtq, A, Bq, Cq)
     torch.cuda.synchronize()
-    assert ssd_kernel.SSD_CHUNK.launches == before + 1
+    assert {k.symbol: k.launches - before[k.symbol] for k in ssd_kernel.KERNELS} == {
+        k.symbol: int(k.symbol == symbol) for k in ssd_kernel.KERNELS}
     want = ssd_chunk_ref(xq, dtq, A, Bq, Cq)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
