@@ -464,16 +464,19 @@ def ssd_inputs(gen, b, S, H, P, G, N, dtype):
     return x, dt, A, B, C
 
 
-def ssd_worst(got, want) -> float:
+def ssd_worst(got, want):
     """Raise unless every output is within SSD_TOL (atol and rtol);
-    return the largest absolute difference."""
-    worst = 0.0
+    return the largest absolute difference and the largest ratio of a
+    difference to its tolerance."""
+    worst, ratio = 0.0, 0.0
     for g, w in zip(got, want):
         check(g.dtype == torch.float32 and g.shape == w.shape, "ssd output shape")
         check(bool(torch.isfinite(g).all()), "ssd outputs finite")
         torch.testing.assert_close(g, w, atol=SSD_TOL, rtol=SSD_TOL)
-        worst = max(worst, float((g - w).abs().max()))
-    return worst
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        ratio = max(ratio, float((d / (SSD_TOL + SSD_TOL * w.abs())).max()))
+    return worst, ratio
 
 
 def flash_compare(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -496,10 +499,10 @@ def f32p_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
     return {"max_abs": float(d.abs().max()), "rel_fro": float(d.norm() / want.float().norm())}
 
 
-def flash_flops(B, Sq, Skv, H, D, causal=True) -> float:
-    """The two products' operations, counting only unmasked keys."""
-    keys = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
-    return 4.0 * B * H * D * keys
+def flash_flops(B, Sq, Skv, H, D) -> float:
+    """The two products' operations in causal attention, counting only
+    unmasked keys."""
+    return 4.0 * B * H * D * sum(min(i + 1, Skv) for i in range(Sq))
 
 
 def bound(flops: float, nbytes: float):
@@ -581,18 +584,19 @@ def model_kernel_phases(seed: int) -> None:
         chunk_args = chunk_args[:2] + (A,) + chunk_args[2:]
         kern = ssd_kernel.route(dtype, chunk, P, N)
         before = {k.symbol: k.launches for k in ssd_kernel.KERNELS}
-        err = ssd_worst(ssd_kernel.ssd_chunk_cuda(*chunk_args), ssd_chunk_ref(*chunk_args))
+        err, ratio = ssd_worst(ssd_kernel.ssd_chunk_cuda(*chunk_args),
+                               ssd_chunk_ref(*chunk_args))
         ran = {k.symbol: k.launches - before[k.symbol] for k in ssd_kernel.KERNELS}
         check(ran == {k.symbol: int(k is kern) for k in ssd_kernel.KERNELS},
               f"SSD case {(b, S, H, P, G, N, chunk, dtype)} ran {kern.symbol} only: {ran}")
         ssd.append({"case": [b, S, H, P, G, N, chunk, str(dtype)[6:]], "kernel": kern.symbol,
-                    "max_abs_err": err})
+                    "max_abs_err": err, "tol_ratio": ratio})
         ssd_err = max(ssd_err, err)
         y, st = ssd_scan_op(x, dt, A, Bm, Cm, chunk=chunk)      # ragged S: padded
         y_want, st_want = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
         outs = (st,) if dtype == torch.bfloat16 else (y, st)    # y is bf16 then
         wants = (st_want,) if dtype == torch.bfloat16 else (y_want, st_want)
-        ssd_err = max(ssd_err, ssd_worst(outs, wants))
+        ssd_err = max(ssd_err, ssd_worst(outs, wants)[0])
     torch.cuda.synchronize()
     emit({"phase": "model_kernel_checks", "flash_cases": len(FLASH_CASES),
           "flash_tolerance": {str(k)[6:]: v for k, v in FLASH_TOL.items()},
@@ -725,7 +729,7 @@ def zamba2(seed: int) -> list:
     ssd_args = captured["ssd"]
     ssd_want = ssd_chunk_ref(*ssd_args)
     ssd_out = ssd_kernel.ssd_chunk_cuda(*ssd_args)
-    ssd_err = ssd_worst(ssd_out, ssd_want)
+    ssd_err, ssd_ratio = ssd_worst(ssd_out, ssd_want)
     torch.cuda.synchronize()
 
     # decode as repro_torch.launch.serve does it, against prefill of the
@@ -751,7 +755,7 @@ def zamba2(seed: int) -> list:
           "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
           "prefill_peak_memory_gb": peak_gb, "prefill_logit_max_abs": logit_max,
           "flash_captured": flash_cmp, "flash_captured_f32p_gap": flash_gap,
-          "ssd_captured_max_abs_err": ssd_err,
+          "ssd_captured_max_abs_err": ssd_err, "ssd_captured_tol_ratio": ssd_ratio,
           "decode_batch": PREFILL_BATCH, "prompt_len": PROMPT_LEN,
           "new_tokens": NEW_TOKENS, "decode_steps": steps, "decode_s": dec["seconds"],
           "decode_tokens_per_s": PREFILL_BATCH * steps / dec["seconds"],
@@ -780,12 +784,13 @@ def zamba2(seed: int) -> list:
         args = tuple(t.to(dtype) if t.dtype == torch.bfloat16 else t for t in ssd_args)
         outs = tuple(torch.empty_like(t) for t in ssd_out)
         ssd_kernel.launch(outs, *args, kernel=core)
-        err = ssd_worst(outs, ssd_want if dtype == torch.bfloat16 else ssd_chunk_ref(*args))
+        err, ratio = ssd_worst(outs, ssd_want if dtype == torch.bfloat16
+                               else ssd_chunk_ref(*args))
         nbytes = (sum(t.numel() * t.element_size() for t in args)
                   + sum(t.numel() * 4 for t in outs))
         core_rows.append({
             "name": "ssd_chunk", "symbol": core.symbol, "dtype": str(dtype)[6:],
-            "max_abs_err": err,
+            "max_abs_err": err, "tol_ratio": ratio,
             "ms": time_ms(lambda: ssd_kernel.launch(outs, *args, kernel=core), TIMED_RUNS),
             "ops": ssd_flops, "bytes": nbytes,
             "f32_ops_bound_ms": ssd_flops / F32_OPS_PER_S * 1e3,

@@ -25,33 +25,42 @@
 // The chunk is masked linear attention: S = C . B^T, P = S o decay o dt[j], Y = P . x,
 // flash without the softmax. On Zamba2's path x, B and C arrive in bf16, so C . B^T is
 // exact on the tensor cores (bf16 products, f32 accumulation). The other operand of
-// each of the other two products is f32 (P, and x o w), and bf16 alone misses 1e-4
-// (~70x the tolerance at Zamba2's scales). So each f32 operand v is split as
-// hi = bf16(v), lo = bf16(v - hi), and hi . op + lo . op accumulate into one f32
-// accumulator: two products, not three, since the other operand is exact. hi + lo
-// carries ~16 bits of v's mantissa; the split keeps the error at about a tenth of
-// the tolerance at Zamba2's scales (tests/test_torch_ssd_scan.py models it on the CPU).
-//   - One block of 8 warps per (batch, chunk, group, block of 8 heads of the group):
-//     640 blocks at Zamba2's shape, ~5 to an SM. C and B of the chunk's group are
-//     staged once per block with cp.async (64 KB at N 64, 128 KB at N 128) and serve
-//     all its heads; each head's x tile (Q x P) streams through a double buffer, the
-//     next head's loading while this one computes.
+// each of the other two products is f32 (P, and x o w), and bf16 alone misses 1e-4 at
+// Zamba2's scales. So each f32 operand v is split as hi = bf16(v), lo = bf16(v - hi),
+// and hi . op + lo . op accumulate into one f32 accumulator: two products, not three,
+// since the other operand is exact. hi + lo carries ~16 bits of v's mantissa, which
+// meets 1e-4 (tests/test_torch_ssd_scan.py models both on the CPU). With the split a
+// call is ~90 GFLOP of m16n8k16 products at Zamba2's shape.
+//   - One block per (batch, chunk, group, up to 8 heads of the group): 640 blocks at
+//     Zamba2's shape, one to an SM at a time. C and B of the chunk's group are staged
+//     once per block with cp.async (64 KB at N 64, 128 KB at N 128) and serve all its
+//     heads. The block has two groups of 8 warps where N <= 64 (one where the
+//     registers do not allow two), and group k computes heads k, k + 2, ...: while one
+//     group waits for its next head's x tile (Q x P), the other computes. Head hl's x
+//     lies in buffer hl % 2, so with one group the buffers alternate.
 //   - Before the heads, warp k scans head k's cum_a (one warp's shuffle scan over the
-//     chunk, as in the f32 kernel) and writes a_total and y_decay.
+//     chunk, as in the f32 kernel), writes a_total and y_decay, and fills two f32
+//     arrays of the head: w (the states' weight) and cc (below).
 //   - y_intra: row tiles of 16, a warp taking tiles t and 2*8-1-t (the causal work of
 //     the pair is the same for every warp). For each column tile j <= i, S_ij is
 //     recomputed from shared memory for each head (m16n8k16 from ldmatrix fragments:
-//     C . B^T is ~a third of a head's products and needs no f32 tile to keep); S is
-//     weighted in registers by exp(cum_i - cum_j) and dt[j], masked before the exp
-//     (above the diagonal cum_i - cum_j reaches ~+180 with A = -1, whose exp is inf),
-//     split to hi/lo A fragments (the layout of two n8 accumulators is that of one
-//     A fragment) and multiplied with x (ldmatrix.trans) into the f32 accumulator.
+//     C . B^T is a quarter of a head's products and needs no f32 tile to keep).
+//     Off the diagonal the weight exp(cum_i - cum_j) dt_j is a product of factors
+//     that are each at most 1 (tc_y_intra): one exponential a tile pair, where the
+//     direct form takes eight a thread. The diagonal tile takes the direct form,
+//     masked before the exp (above the diagonal cum_i - cum_j reaches ~+180 with
+//     A = -1, whose exp is inf). The weighted S is
+//     split to hi/lo A fragments (two n8 accumulators have the layout of one A
+//     fragment) and multiplied with x (ldmatrix.trans) into the f32 accumulator.
 //     Each warp stores its rows' 64 contiguous floats per (row, head) as float2 pairs
 //     that fill whole 32-byte sectors.
 //   - states: (x o w)^T . B, the A fragment x^T from ldmatrix.trans, widened, weighted
 //     by w in f32 and split hi/lo; B as the B operand (ldmatrix.trans).
 //   - Rows are padded by 16 bytes in shared memory, so the 8 rows an ldmatrix reads
 //     fall in distinct banks.
+// It does not reach its bytes bound: each warp issues its products, weights and splits
+// in turn (tools/ssd_probe.py times the parts, PERF.md has the numbers); wgmma, which
+// runs the products asynchronously beside the weights, is the next step.
 //
 // --- f32 (and other bf16 shapes): ssd_chunk_kernel (CUDA cores) ---------------------
 // The products in f32 on the CUDA cores, which makes the operations its limit (~0.8 ms
@@ -271,15 +280,42 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcWarps = 8;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcHeads = kTcWarps;  // heads per block: warp k scans head k
-constexpr int kTcPad = 8;           // bf16 of padding a row in shared memory
+constexpr int kTcWarps = 8;            // warps of a group, which computes one head
+constexpr int kTcGroupThreads = 32 * kTcWarps;
+constexpr int kTcMaxHeads = kTcWarps;  // heads per block at most: warp k scans head k
 
-__host__ __device__ constexpr size_t tc_smem_bytes(int Q, int P, int N) {
+// Groups of a block: two (512 threads, at most 128 registers each) where the state
+// width leaves the registers for it, one where it does not.
+template <int N>
+__host__ __device__ constexpr int tc_groups() { return N <= 64 ? 2 : 1; }
+constexpr int kTcPad = 8;              // bf16 of padding a row in shared memory
+constexpr int kTcRowArrays = 4;        // f32 per row and head: cum_a, dt, cc, w
+constexpr size_t kSmemMax = 232448;    // a block's shared memory (227 KB)
+
+// Switches of tools/ssd_probe.py, a bit mask fixed at build time (-DSSD_PROBE=n; 0, the
+// default, builds the kernel as it is). Each cuts a part out of the tensor-core kernel
+// to see what the rest costs, so every switch makes it compute something else:
+//   1  no y_intra (tc_y_intra skipped);
+//   2  no states (tc_states skipped);
+//   4  no products: each m16n8k16 becomes one dependent add;
+//   8  no decay weights off the diagonal: the raw scores are split;
+//   16 no x loads after the first two heads (each head reads a tile already there).
+#ifndef SSD_PROBE
+#define SSD_PROBE 0
+#endif
+constexpr int kProbe = SSD_PROBE;
+
+__host__ __device__ constexpr size_t tc_smem_bytes(int Q, int P, int N, int heads) {
   return 2 * static_cast<size_t>(Q) * (N + kTcPad) * sizeof(bf16) +  // C, B
          2 * static_cast<size_t>(Q) * (P + kTcPad) * sizeof(bf16) +  // x, two buffers
-         2 * static_cast<size_t>(kTcHeads) * Q * sizeof(float);     // cum_a, dt
+         static_cast<size_t>(kTcRowArrays) * heads * Q * sizeof(float);
+}
+
+// Heads a block takes: the most of 8, 4, 2, 1 whose shared memory fits; 0 if none.
+__host__ __device__ constexpr int tc_heads(int Q, int P, int N) {
+  int heads = kTcMaxHeads;
+  while (heads > 0 && tc_smem_bytes(Q, P, N, heads) > kSmemMax) heads /= 2;
+  return heads;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -309,6 +345,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4
 // d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
+  if (kProbe & 4) {
+    d[0] += __uint_as_float(a[0] ^ a[3] ^ b0 ^ b1);
+    return;
+  }
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -332,25 +372,43 @@ __device__ __forceinline__ float2 widen(uint32_t r) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
 }
 
+// The warp's index within its group, through a shuffle so that the compiler knows it
+// is the same across the warp (the products' .aligned instructions then need no
+// reconvergence code).
+__device__ __forceinline__ int group_warp() {
+  return __shfl_sync(0xffffffffu, (threadIdx.x >> 5) % kTcWarps, 0);
+}
+
+// Named barrier of the group's threads (0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(kTcGroupThreads) : "memory");
+}
+
 // Stage the Q x P tile of head h of the chunk (rows x_stride apart) into dst, row
-// pitch P + kTcPad.
+// pitch P + kTcPad, by the threads of one group.
 __device__ __forceinline__ void stage_x(bf16* dst, const bf16* src, long long x_stride, int Q,
                                         int P) {
   const int chunks = P / 8;  // 16-byte pieces a row
-  for (int c = threadIdx.x; c < Q * chunks; c += kTcThreads) {
+  for (int c = threadIdx.x % kTcGroupThreads; c < Q * chunks; c += kTcGroupThreads) {
     const int r = c / chunks, col = (c % chunks) * 8;
     cp_async_16(smem_addr(dst + r * (P + kTcPad) + col), src + r * x_stride + col);
   }
 }
 
-// y_intra of one head: this warp's row tiles, all P columns.
+// y_intra of one head: this warp's row tiles, all P columns. Off the diagonal tile
+// (j0 + 16 <= i0) the weight exp(cum_i - cum_j) dt_j is the product of three factors,
+// each at most 1, so that no product overflows:
+//   R_i = exp(cum_i - cum_i0)  (per row tile),  E = exp(cum_i0 - cum_je)  (per tile pair),
+//   cc_j = exp(cum_je - cum_j) dt_j  (per head, in shared memory),  je = j0 + 15,
+// one exponential a tile pair where the direct form takes eight a thread. The diagonal
+// tile takes the direct form, masked before the exp.
 template <int N>
 __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const bf16* sX,
-                                           const float* cum, const float* dts, float* yb,
-                                           long long y_stride, int Q, int P) {
+                                           const float* cum, const float* dts, const float* cc,
+                                           float* yb, long long y_stride, int Q, int P) {
   constexpr int LDN = N + kTcPad;
   const int LDP = P + kTcPad;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = group_warp(), lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int n_tiles = Q / 16;
   for (int round = 0; round * kTcWarps < n_tiles; ++round) {
@@ -358,7 +416,8 @@ __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const
     const int it = round * kTcWarps + ((round & 1) ? kTcWarps - 1 - warp : warp);
     if (it >= n_tiles) continue;
     const int i0 = it * 16, ra = i0 + g, rb = ra + 8;
-    const float cum_a = cum[ra], cum_b = cum[rb];
+    const float cum_i0 = cum[i0], cum_a = cum[ra], cum_b = cum[rb];
+    const float row_a = expf(cum_a - cum_i0), row_b = expf(cum_b - cum_i0);
     uint32_t cf[N / 16][4];  // C rows i0..i0+15 as A fragments
 #pragma unroll
     for (int kk = 0; kk < N / 16; ++kk)
@@ -367,32 +426,61 @@ __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const
       float acc[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * 16;
-        // S = C_i . B_j^T, 16 x 16 as two n8 accumulators
-        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      // S = C_i . B_j^T, 16 x 16 as two n8 accumulators; the next column tile's S is
+      // issued before this one is weighted, so that its products overlap the weights
+      auto c_bt = [&](int j0, float (&out)[2][4]) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) out[n][0] = out[n][1] = out[n][2] = out[n][3] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < N / 16; ++kk) {
           uint32_t b[4];
           ldmatrix_x4(smem_addr(sB + (j0 + (lane >> 4) * 8 + (lane & 7)) * LDN + kk * 16 +
                                 ((lane >> 3) & 1) * 8),
                       b);
-          mma_bf16(s[0], cf[kk], b[0], b[1]);
-          mma_bf16(s[1], cf[kk], b[2], b[3]);
+          mma_bf16(out[0], cf[kk], b[0], b[1]);
+          mma_bf16(out[1], cf[kk], b[2], b[3]);
         }
-        // weight by decay and dt[j], masked before the exp; split into hi/lo
-        uint32_t hi[4], lo[4];
+      };
+      float s_next[2][4];
+      c_bt(0, s_next);
+      for (int jt = 0; jt <= it; ++jt) {
+        const int j0 = jt * 16;
+        float s[2][4];
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
-          const int j = j0 + nb * 8 + 2 * tq;
-          const float2 cj = *reinterpret_cast<const float2*>(cum + j);
-          const float2 dj = *reinterpret_cast<const float2*>(dts + j);
-          const float v0 = ra >= j ? s[nb][0] * expf(cum_a - cj.x) * dj.x : 0.f;
-          const float v1 = ra >= j + 1 ? s[nb][1] * expf(cum_a - cj.y) * dj.y : 0.f;
-          const float v2 = rb >= j ? s[nb][2] * expf(cum_b - cj.x) * dj.x : 0.f;
-          const float v3 = rb >= j + 1 ? s[nb][3] * expf(cum_b - cj.y) * dj.y : 0.f;
-          split2(v0, v1, hi[2 * nb], lo[2 * nb]);          // row g, k 8 nb + 2 tq
-          split2(v2, v3, hi[2 * nb + 1], lo[2 * nb + 1]);  // row g + 8
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = s_next[n][e];
+        if (jt < it) c_bt(j0 + 16, s_next);
+        // weight by decay and dt[j]; split into hi/lo
+        uint32_t hi[4], lo[4];
+        if (kProbe & 8) {
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb) {
+            split2(s[nb][0], s[nb][1], hi[2 * nb], lo[2 * nb]);
+            split2(s[nb][2], s[nb][3], hi[2 * nb + 1], lo[2 * nb + 1]);
+          }
+        } else if (jt < it) {
+          const float e = expf(cum_i0 - cum[j0 + 15]);
+          const float fa = row_a * e, fb = row_b * e;
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb) {
+            const float2 c = *reinterpret_cast<const float2*>(cc + j0 + nb * 8 + 2 * tq);
+            split2(s[nb][0] * fa * c.x, s[nb][1] * fa * c.y, hi[2 * nb], lo[2 * nb]);
+            split2(s[nb][2] * fb * c.x, s[nb][3] * fb * c.y, hi[2 * nb + 1], lo[2 * nb + 1]);
+          }
+        } else {
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb) {
+            const int j = j0 + nb * 8 + 2 * tq;
+            const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+            const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+            const float v0 = ra >= j ? s[nb][0] * expf(cum_a - cj.x) * dj.x : 0.f;
+            const float v1 = ra >= j + 1 ? s[nb][1] * expf(cum_a - cj.y) * dj.y : 0.f;
+            const float v2 = rb >= j ? s[nb][2] * expf(cum_b - cj.x) * dj.x : 0.f;
+            const float v3 = rb >= j + 1 ? s[nb][3] * expf(cum_b - cj.y) * dj.y : 0.f;
+            split2(v0, v1, hi[2 * nb], lo[2 * nb]);          // row g, k 8 nb + 2 tq
+            split2(v2, v3, hi[2 * nb + 1], lo[2 * nb + 1]);  // row g + 8
+          }
         }
         // Y += P . x_j, hi and lo into one accumulator
 #pragma unroll
@@ -421,14 +509,13 @@ __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const
 
 // states of one head: (x o w)^T . B, this warp's (16 p x 32 n) units.
 template <int N>
-__device__ __forceinline__ void tc_states(const bf16* sB, const bf16* sX, const float* cum,
-                                          const float* dts, float* st, int Q, int P) {
+__device__ __forceinline__ void tc_states(const bf16* sB, const bf16* sX, const float* w,
+                                          float* st, int Q, int P) {
   constexpr int LDN = N + kTcPad;
   constexpr int kGroups = (N + 31) / 32;
   const int LDP = P + kTcPad;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = group_warp(), lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const float total = cum[Q - 1];
   for (int u = warp; u < (P / 16) * kGroups; u += kTcWarps) {
     const int p0 = (u / kGroups) * 16, n0 = (u % kGroups) * 32;
     float acc[4][4];
@@ -440,17 +527,14 @@ __device__ __forceinline__ void tc_states(const bf16* sB, const bf16* sX, const 
       ldmatrix_x4_trans(smem_addr(sX + (j0 + (lane & 7) + (lane >> 4) * 8) * LDP + p0 +
                                   ((lane >> 3) & 1) * 8),
                         a);
-      const int ja = j0 + 2 * tq, jb = ja + 8;
-      const float w0 = expf(total - cum[ja]) * dts[ja];
-      const float w1 = expf(total - cum[ja + 1]) * dts[ja + 1];
-      const float w2 = expf(total - cum[jb]) * dts[jb];
-      const float w3 = expf(total - cum[jb + 1]) * dts[jb + 1];
+      const float2 wa = *reinterpret_cast<const float2*>(w + j0 + 2 * tq);      // k 2tq, +1
+      const float2 wb = *reinterpret_cast<const float2*>(w + j0 + 8 + 2 * tq);  // k 8 + 2tq
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float2 xv = widen(a[r]);
-        const bool high_k = r >= 2;  // a[2], a[3]: k 8..15
-        split2(xv.x * (high_k ? w2 : w0), xv.y * (high_k ? w3 : w1), hi[r], lo[r]);
+        const float2 wr = r >= 2 ? wb : wa;  // a[2], a[3]: k 8..15
+        split2(xv.x * wr.x, xv.y * wr.y, hi[r], lo[r]);
       }
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
@@ -477,50 +561,58 @@ __device__ __forceinline__ void tc_states(const bf16* sB, const bf16* sX, const 
 }
 
 template <int N>
-__global__ void __launch_bounds__(kTcThreads, 1)
+__global__ void __launch_bounds__(kTcGroupThreads * tc_groups<N>(), 1)
 ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const bf16* __restrict__ Bg,
                     const bf16* __restrict__ Cg, float* __restrict__ y,
                     float* __restrict__ states, float* __restrict__ a_total,
                     float* __restrict__ y_decay, int nc, int Q, int H, int P, int G,
-                    int head_blocks) {
+                    int heads, int head_blocks) {
   constexpr int LDN = N + kTcPad;
+  constexpr int kGroups = tc_groups<N>();
+  constexpr int kThreads = kTcGroupThreads * kGroups;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* sC = reinterpret_cast<bf16*>(tc_smem);
   bf16* sB = sC + Q * LDN;
   bf16* sX0 = sB + Q * LDN;
   bf16* sX1 = sX0 + Q * (P + kTcPad);
-  float* sCum = reinterpret_cast<float*>(sX1 + Q * (P + kTcPad));  // [kTcHeads][Q]
-  float* sDt = sCum + kTcHeads * Q;                                   // [kTcHeads][Q]
+  // per head and row: cum_a, dt, cc (the column factor of tc_y_intra), w
+  float* sCum = reinterpret_cast<float*>(sX1 + Q * (P + kTcPad));  // [heads][Q]
+  float* sDt = sCum + heads * Q;
+  float* sCC = sDt + heads * Q;
+  float* sW = sCC + heads * Q;
 
   const int g = blockIdx.x / head_blocks, hb = blockIdx.x % head_blocks;
   const int rep = H / G;
-  const int h0 = g * rep + hb * kTcHeads;
-  const int nh = min(kTcHeads, rep - hb * kTcHeads);
+  const int h0 = g * rep + hb * heads;
+  const int nh = min(heads, rep - hb * heads);
   const long long chunk = static_cast<long long>(blockIdx.z) * nc + blockIdx.y;
   const long long row0 = chunk * Q;  // first row of the chunk in (b, nc, Q)
   const long long x_stride = static_cast<long long>(H) * P;
   const long long bc_stride = static_cast<long long>(G) * N;
   const bf16* xb = x + row0 * x_stride + static_cast<long long>(h0) * P;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, group = warp / kTcWarps;
 
-  // 1. C and B of the group, then head h0's x, in flight while the scans run
+  // 1. C and B of the group, then the first two heads' x, in flight while the scans run
   {
     const bf16* Cb = Cg + row0 * bc_stride + static_cast<long long>(g) * N;
     const bf16* Bb = Bg + row0 * bc_stride + static_cast<long long>(g) * N;
     constexpr int chunks = N / 8;
-    for (int c = tid; c < Q * chunks; c += kTcThreads) {
+    for (int c = tid; c < Q * chunks; c += kThreads) {
       const int r = c / chunks, col = (c % chunks) * 8;
       cp_async_16(smem_addr(sC + r * LDN + col), Cb + r * bc_stride + col);
       cp_async_16(smem_addr(sB + r * LDN + col), Bb + r * bc_stride + col);
     }
+    cp_async_commit();
   }
-  stage_x(sX0, xb, x_stride, Q, P);
-  cp_async_commit();
+  for (int hl = group; hl < min(2, nh); hl += kGroups) {
+    stage_x(hl ? sX1 : sX0, xb + hl * P, x_stride, Q, P);
+    cp_async_commit();
+  }
 
-  // 2. cum_a of head h0 + k by warp k; a_total and y_decay
-  for (int e = tid; e < Q * kTcHeads; e += kTcThreads) {
-    const int i = e / kTcHeads, hl = e % kTcHeads;
+  // 2. cum_a of head h0 + k by warp k; a_total, y_decay, cc and w
+  for (int e = tid; e < Q * heads; e += kThreads) {
+    const int i = e / heads, hl = e % heads;
     if (hl < nh) sDt[hl * Q + i] = dt[(row0 + i) * H + h0 + hl];
   }
   __syncthreads();
@@ -543,27 +635,43 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       carry = __shfl_sync(0xffffffffu, v, 31);
     }
     __syncwarp();
-    if (lane == 0) a_total[chunk * H + h] = cum[Q - 1];
-    for (int i = lane; i < Q; i += 32) y_decay[(row0 + i) * H + h] = expf(cum[i]);
+    const float total = cum[Q - 1];
+    if (lane == 0) a_total[chunk * H + h] = total;
+    float* cc = sCC + warp * Q;
+    float* w = sW + warp * Q;
+    for (int i = lane; i < Q; i += 32) {
+      y_decay[(row0 + i) * H + h] = expf(cum[i]);
+      cc[i] = expf(cum[i | 15] - cum[i]) * dts[i];  // i | 15: the last row of i's tile
+      w[i] = expf(total - cum[i]) * dts[i];
+    }
   }
 
-  // 3. the heads, x double-buffered
-  for (int hl = 0; hl < nh; ++hl) {
+  // 3. the heads: group k takes heads k, k + groups, ...; head hl's x lies in buffer
+  // hl % 2 and the load of head hl + 2 follows its use. With two groups the other
+  // group computes while one waits for its load; with one, the buffers alternate.
+  cp_async_wait<0>();
+  __syncthreads();  // C, B, the first x tiles and the scans
+  for (int hl = group; hl < nh; hl += kGroups) {
     bf16* sX = (hl & 1) ? sX1 : sX0;
-    if (hl + 1 < nh) {
-      stage_x((hl & 1) ? sX0 : sX1, xb + (hl + 1) * P, x_stride, Q, P);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    if (hl >= 2) {
+      if (kGroups == 1 && hl + 1 < nh)
+        cp_async_wait<1>();  // head hl + 1's load may stay in flight
+      else
+        cp_async_wait<0>();
+      group_sync(group);
     }
-    __syncthreads();  // head hl's x (and C, B, the scans) visible to every warp
     const int h = h0 + hl;
-    tc_y_intra<N>(sC, sB, sX, sCum + hl * Q, sDt + hl * Q, y + row0 * x_stride +
-                  static_cast<long long>(h) * P, x_stride, Q, P);
-    tc_states<N>(sB, sX, sCum + hl * Q, sDt + hl * Q,
-                 states + (chunk * H + h) * static_cast<long long>(P) * N, Q, P);
-    __syncthreads();  // every warp is done with sX before it is loaded again
+    if (!(kProbe & 1))
+      tc_y_intra<N>(sC, sB, sX, sCum + hl * Q, sDt + hl * Q, sCC + hl * Q,
+                    y + row0 * x_stride + static_cast<long long>(h) * P, x_stride, Q, P);
+    if (!(kProbe & 2))
+      tc_states<N>(sB, sX, sW + hl * Q,
+                   states + (chunk * H + h) * static_cast<long long>(P) * N, Q, P);
+    group_sync(group);  // the group is done with sX
+    if (hl + 2 < nh && !(kProbe & 16)) {
+      stage_x(sX, xb + (hl + 2) * P, x_stride, Q, P);
+      cp_async_commit();
+    }
   }
 }
 
@@ -571,17 +679,18 @@ template <int N>
 int launch_tc(const void* x, const void* dt, const void* A, const void* B, const void* C,
               void* y, void* states, void* a_total, void* y_decay, int b, int nc, int Q, int H,
               int P, int G, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(Q, P, N);
+  const int heads = tc_heads(Q, P, N);
+  const size_t smem = tc_smem_bytes(Q, P, N, heads);
   const cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_tc_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int head_blocks = (H / G + kTcHeads - 1) / kTcHeads;
+  const int head_blocks = (H / G + heads - 1) / heads;
   const dim3 grid(head_blocks * G, nc, b);
-  ssd_chunk_tc_kernel<N><<<grid, kTcThreads, smem, stream>>>(
+  ssd_chunk_tc_kernel<N><<<grid, kTcGroupThreads * tc_groups<N>(), smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(B), static_cast<const bf16*>(C), static_cast<float*>(y),
       static_cast<float*>(states), static_cast<float*>(a_total), static_cast<float*>(y_decay),
-      nc, Q, H, P, G, head_blocks);
+      nc, Q, H, P, G, heads, head_blocks);
   return cudaGetLastError();
 }
 
@@ -604,13 +713,13 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A, const
 
 // x (b, nc, Q, H, P) and B, C (b, nc, Q, G, N) in bf16, 16-byte aligned; dt (b, nc, Q,
 // H) and A (H,) f32; outputs as ssd_chunk_fwd's. Q, P and N multiples of 16, N <= 128,
-// and the kernel's shared memory (tc_smem_bytes) within the block's 227 KB; any other
-// shape returns cudaErrorInvalidValue.
+// and the shared memory of one head a block (tc_smem_bytes) within the block's 227 KB;
+// any other shape returns cudaErrorInvalidValue.
 extern "C" int ssd_chunk_fwd_tc(const void* x, const void* dt, const void* A, const void* B,
                                 const void* C, void* y, void* states, void* a_total,
                                 void* y_decay, int b, int nc, int Q, int H, int P, int G, int N,
                                 cudaStream_t stream) {
-  if (Q % 16 || P % 16 || tc_smem_bytes(Q, P, N) > 232448)
+  if (Q % 16 || P % 16 || tc_heads(Q, P, N) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (N) {
 #define SSD_TC_CASE(n) \

@@ -4,12 +4,13 @@
 ``csrc/ssd_chunk.cu`` holds two kernels, one launcher each; the dtype and
 shape pick one (``route``):
 
-- bf16 with Q, P and N multiples of 16, N at most 128 and the block's
-  shared memory within the card's 227 KB: ``ssd_chunk_fwd_tc``. One
-  block per (batch, chunk, group, 8 heads of the group) stages C and B
-  once and runs the three products on the tensor cores (``mma.sync``),
-  the f32 operand of two of them split into bf16 hi and lo parts, which
-  keeps the f32 outputs within 1e-4 of the plain version.
+- bf16 with Q, P and N multiples of 16, N at most 128 and the shared
+  memory of a block of one head within the card's 227 KB:
+  ``ssd_chunk_fwd_tc``. One block per (batch, chunk, group, up to 8 heads
+  of the group) stages C and B once and runs the three products on the
+  tensor cores (``mma.sync``), the f32 operand of two of them split into
+  bf16 hi and lo parts, which keeps the f32 outputs within 1e-4 of the
+  plain version.
 - f32, and every other bf16 shape: ``ssd_chunk_fwd``, one block per
   (head, chunk, batch), f32 products on the CUDA cores in 64 x 64 tiles.
 
@@ -33,11 +34,13 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: longest chunk of the CUDA-core kernel: the per-row f32 arrays share the
 #: block's shared memory
 MAX_CHUNK = 4096
-#: the tensor-core kernel: its largest state width, its heads a block, the
-#: bf16 padding of a row in shared memory, and a block's shared memory
+#: the tensor-core kernel: its largest state width, its most heads a block,
+#: the bf16 padding of a row in shared memory, its f32 arrays per row and
+#: head, and a block's shared memory
 TC_MAX_N = 128
-TC_HEADS = 8
+TC_MAX_HEADS = 8
 TC_PAD = 8
+TC_ROW_ARRAYS = 4
 SMEM_MAX = 232448
 
 _ARGS = [_build.P] * 9 + [_build.I32] * 7
@@ -46,10 +49,20 @@ SSD_CHUNK = _build.Kernel("ssd_chunk", "ssd_chunk_fwd", _ARGS + [_build.I32])
 KERNELS = (SSD_CHUNK_TC, SSD_CHUNK)
 
 
-def tc_smem_bytes(Q: int, P: int, N: int) -> int:
+def tc_smem_bytes(Q: int, P: int, N: int, heads: int) -> int:
     """Shared memory of a tensor-core block (``tc_smem_bytes`` in the
-    source): C and B, two buffers of x, and cum_a and dt of its heads."""
-    return 2 * Q * (N + TC_PAD) * 2 + 2 * Q * (P + TC_PAD) * 2 + 2 * TC_HEADS * Q * 4
+    source): C and B, two buffers of x, and four f32 arrays per head."""
+    return (2 * Q * (N + TC_PAD) * 2 + 2 * Q * (P + TC_PAD) * 2
+            + TC_ROW_ARRAYS * heads * Q * 4)
+
+
+def tc_heads(Q: int, P: int, N: int) -> int:
+    """Heads a tensor-core block takes (``tc_heads`` in the source): the
+    most of 8, 4, 2, 1 whose shared memory fits; 0 if none does."""
+    heads = TC_MAX_HEADS
+    while heads and tc_smem_bytes(Q, P, N, heads) > SMEM_MAX:
+        heads //= 2
+    return heads
 
 
 def route(dtype: torch.dtype, Q: int, P: int, N: int) -> _build.Kernel:
@@ -58,7 +71,7 @@ def route(dtype: torch.dtype, Q: int, P: int, N: int) -> _build.Kernel:
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"no SSD chunk kernel takes {dtype}")
     if (dtype == torch.bfloat16 and Q % 16 == 0 and P % 16 == 0 and N % 16 == 0
-            and N <= TC_MAX_N and tc_smem_bytes(Q, P, N) <= SMEM_MAX):
+            and N <= TC_MAX_N and tc_heads(Q, P, N)):
         return SSD_CHUNK_TC
     return SSD_CHUNK
 

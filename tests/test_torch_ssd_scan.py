@@ -201,9 +201,12 @@ def test_route_picks_the_kernel_by_dtype_and_shape(dtype, Q, P, N, symbol):
 def test_route_refuses_other_dtypes_and_sizes_shared_memory():
     with pytest.raises(ValueError, match="float16"):
         ssd_kernel.route(torch.float16, 256, 64, 64)
-    # Zamba2's block and mamba2-130m's, against the block's 227 KB
-    assert ssd_kernel.tc_smem_bytes(256, 64, 64) == 163840
-    assert ssd_kernel.tc_smem_bytes(256, 64, 128) == 229376 <= ssd_kernel.SMEM_MAX
+    # Zamba2's block takes 8 heads, mamba2-130m's 4, within the block's 227 KB
+    assert ssd_kernel.tc_heads(256, 64, 64) == 8
+    assert ssd_kernel.tc_smem_bytes(256, 64, 64, 8) == 180224
+    assert ssd_kernel.tc_heads(256, 64, 128) == 4
+    assert ssd_kernel.tc_smem_bytes(256, 64, 128, 4) == 229376 <= ssd_kernel.SMEM_MAX
+    assert ssd_kernel.tc_heads(512, 64, 64) == 0
 
 
 # --- on the card --------------------------------------------------------------
