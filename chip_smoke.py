@@ -19,15 +19,19 @@
    tensors are freed before the model loads.
 4. Model kernels: flash attention against its plain version at head dims
    64, 80, 128 and 256, GQA, MQA, non-causal and ragged, in bf16 and f32
-   (bf16 also at 16, 48 and 96), each case through the kernel its dtype
-   and head dim select, and in f32 at Zamba2's shared-block shape (timed
-   as well, beside ``scaled_dot_product_attention`` in f32); each output
-   within ``atol + rtol |want|`` and a bound on the relative Frobenius
-   error (``FLASH_TOL``); each bf16 case also reports its gap to
+   (bf16 also at 16, 48 and 96, and 144, 176 and 192: the kinds of tail
+   box at both kv tile sizes), each case through the kernel its dtype
+   selects (its launch counter must say so), and in f32 at Zamba2's
+   shared-block shape (timed as well, beside
+   ``scaled_dot_product_attention`` in f32); each output within ``atol +
+   rtol |want|`` and a bound on the relative Frobenius error
+   (``FLASH_TOL``); each bf16 case also reports its gap to
    ``flash_ref_f32p`` (probabilities and V in f32, as the Pallas kernel
-   keeps them), a report and no gate. The ``mma.sync`` kernel is timed at
-   gemma-2b's shape (S 4,096, 8 heads, 1 kv head, D 256, causal) and
-   deepseek-v2-lite's (S 4,096, 16 heads of D 192) beside SDPA and its
+   keeps them), a report and no gate. At gemma-2b's shape (S 4,096, 8
+   heads, 1 kv head, D 256, causal) and deepseek-v2-lite's (S 4,096, 16
+   heads of D 192) the routed wgmma kernel and the ``mma.sync`` kernel,
+   which no route takes, are each held against the plain version and
+   timed on the same inputs, beside SDPA, the plain version and the
    bound. The SSD chunk against its plain version at N 64 and 128,
    two groups, chunks of 64 and 256, ragged lengths, mamba2-130m's 24
    heads and a bf16 shape off the tensor-core contract (1e-4 atol and
@@ -56,7 +60,10 @@
    unpack kernels, ``scaled_dot_product_attention`` for flash; null for
    the codec kernels, which no one call computes, where the same row
    gather is timed as ``bytes_reference_ms``, and for the SSD chunk).
-   The flash and SSD rows name the kernel that ran (``symbol``).
+   The flash and SSD rows name the kernel that ran (``symbol``). The
+   wgmma flash kernel has a row at each wide shape of phase 4 too
+   (``flash_attention_wide``), off the main path (0 launches there), with
+   the ``mma.sync`` kernel's time beside it (``mma_sync_ms``).
 7. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
@@ -410,7 +417,9 @@ def deployment(seed: int) -> list:
 # (B, S, H, KVH, D, causal, dtype): head dims 64, 80 (Zamba2), 128 and 256
 # (gemma-2b's MQA), GQA, MQA, non-causal and a ragged length of 200, in bf16
 # and f32; in bf16 also 16, 48 and 96, the wgmma kernel's three kinds of
-# tail box; the last is Zamba2's shared-block shape in f32 at batch 1
+# tail box with kv tiles of 128 rows, and 144, 176 and 192 (deepseek-v2-lite)
+# with kv tiles of 96; the last is Zamba2's shared-block shape in f32 at
+# batch 1
 BF16, F32 = torch.bfloat16, torch.float32
 FLASH_CASES = [
     (2, 256, 8, 8, 64, True, BF16),
@@ -424,6 +433,9 @@ FLASH_CASES = [
     (2, 136, 4, 1, 16, True, BF16),
     (2, 200, 8, 2, 48, True, BF16),
     (2, 300, 4, 4, 96, False, BF16),
+    (2, 200, 8, 2, 144, True, BF16),
+    (2, 300, 4, 4, 176, False, BF16),
+    (1, 333, 16, 16, 192, True, BF16),
     (2, 256, 8, 8, 80, True, F32),
     (1, 256, 8, 2, 64, True, F32),
     (1, 200, 8, 1, 128, False, F32),
@@ -442,9 +454,9 @@ SSD_CASES = [
     (2, 1024, 24, 64, 1, 128, 256, torch.bfloat16),
     (1, 600, 8, 64, 1, 40, 256, torch.bfloat16),
 ]
-# bf16 flash at the head dims of the mma.sync kernel, timed:
-# (name, B, S, H, KVH, D), causal
-FLASH_MMA_TIMED = [
+# bf16 flash above head dim 128, at the shapes of the configs that will take
+# it, timed: (name, B, S, H, KVH, D), causal
+FLASH_WIDE_TIMED = [
     ("gemma-2b", 1, 4096, 8, 1, 256),
     ("deepseek-v2-lite", 1, 4096, 16, 16, 192),
 ]
@@ -511,7 +523,17 @@ def bound(flops: float, nbytes: float):
     return max(op_ms, byte_ms), "bytes" if byte_ms >= op_ms else "operations"
 
 
-def model_kernel_phases(seed: int) -> None:
+def launches_of(kernels, fn):
+    """Run ``fn``; return its result and each kernel's launches in it."""
+    before = {k.symbol: k.launches for k in kernels}
+    out = fn()
+    return out, {k.symbol: k.launches - before[k.symbol] for k in kernels}
+
+
+def model_kernel_phases(seed: int) -> list:
+    """The model kernels against their plain versions; returns the rows of
+    the kernels line for the flash kernel at the wide shapes."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
     from repro_torch.kernels.flash_attention.ref import flash_ref, flash_ref_f32p
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -524,10 +546,14 @@ def model_kernel_phases(seed: int) -> None:
         q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, S, KVH, D), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, S, KVH, D), generator=gen, device="cuda").to(dtype)
-        got = flash_attention_cuda(q, k, v, causal=causal)
+        kern = route(dtype, D)
+        got, ran = launches_of(flash_kernel.KERNELS,
+                               lambda: flash_attention_cuda(q, k, v, causal=causal))
+        check(ran == {kn.symbol: int(kn is kern) for kn in flash_kernel.KERNELS},
+              f"flash case {(B, S, H, KVH, D, causal, dtype)} ran {kern.symbol} only: {ran}")
         want = flash_ref(q, k, v, causal=causal)
         flash.append({"case": [B, S, H, KVH, D, causal, str(dtype)[6:]],
-                      "kernel": route(dtype, D).symbol, **flash_compare(got, want)})
+                      "kernel": kern.symbol, **flash_compare(got, want)})
         if dtype == BF16:
             flash[-1]["f32p_gap"] = f32p_gap(got, flash_ref_f32p(q, k, v, causal=causal))
     # the last case, Zamba2's shared-block shape in f32, timed; SDPA in f32
@@ -544,34 +570,61 @@ def model_kernel_phases(seed: int) -> None:
                  "ops": f32_flops, "bound_ms": f32_flops / F32_OPS_PER_S * 1e3,
                  "bound_by": "operations (f32)"}
     del q, k, v, qt, kt, vt, got, want
-    # the mma.sync kernel (bf16, D 144-256) at the shapes of the configs
-    # that will take it, beside SDPA and its bound
-    flash_mma = []
-    for name, B, S, H, KVH, D in FLASH_MMA_TIMED:
+    # bf16 above D 128, at the shapes of the configs that will take it: the
+    # routed wgmma kernel and the mma.sync kernel on the same inputs, beside
+    # SDPA, the plain version and the bound
+    mma = flash_kernel.FLASH_MMA
+    flash_wide, wide_rows = [], []
+    for name, B, S, H, KVH, D in FLASH_WIDE_TIMED:
         q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(BF16)
         k = torch.randn((B, S, KVH, D), generator=gen, device="cuda").to(BF16)
         v = torch.randn((B, S, KVH, D), generator=gen, device="cuda").to(BF16)
-        got = flash_attention_cuda(q, k, v, causal=True)
-        case = {"config": name, "case": [B, S, H, KVH, D, True, "bfloat16"],
-                "kernel": route(BF16, D).symbol,
-                **flash_compare(got, flash_ref(q, k, v, causal=True)),
-                "f32p_gap": f32p_gap(got, flash_ref_f32p(q, k, v, causal=True))}
+        kern = route(BF16, D)
+        got, ran = launches_of(flash_kernel.KERNELS,
+                               lambda: flash_attention_cuda(q, k, v, causal=True))
+        check(ran == {kn.symbol: int(kn is kern) for kn in flash_kernel.KERNELS},
+              f"flash at {name}'s shape ran {kern.symbol} only: {ran}")
+        got_mma = torch.empty_like(q)
+        flash_kernel.launch(got_mma, q, k, v, causal=True, kernel=mma)
+        want = flash_ref(q, k, v, causal=True)
+        want_f32p = flash_ref_f32p(q, k, v, causal=True)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         flops = flash_flops(B, S, S, H, D)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        case["bound_ms"], case["bound_by"] = bound(flops, nbytes)
+        bound_ms, bound_by = bound(flops, nbytes)
+        case = {"config": name, "case": [B, S, H, KVH, D, True, "bfloat16"],
+                "kernel": kern.symbol, **flash_compare(got, want),
+                "f32p_gap": f32p_gap(got, want_f32p),
+                "mma_sync": {"kernel": mma.symbol, **flash_compare(got_mma, want),
+                             "f32p_gap": f32p_gap(got_mma, want_f32p)},
+                "bound_ms": bound_ms, "bound_by": bound_by, "ops": flops, "bytes": nbytes}
+        del want, want_f32p
         case.update(
-            ms=time_ms(lambda: flash_attention_cuda(q, k, v, causal=True), TIMED_RUNS),
+            ms=time_ms(lambda: flash_kernel.launch(got, q, k, v, causal=True), TIMED_RUNS),
+            mma_sync_ms=time_ms(lambda: flash_kernel.launch(got_mma, q, k, v, causal=True,
+                                                            kernel=mma), TIMED_RUNS),
             plain_ms=time_ms(lambda: flash_ref(q, k, v, causal=True), 3, warmup=1),
             library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), TIMED_RUNS),
-            library_call="torch.nn.functional.scaled_dot_product_attention",
-            ops=flops, bytes=nbytes)
-        flash_mma.append(case)
-        del q, k, v, qt, kt, vt, got
-    flash_ok = all(c["ok"] for c in flash + flash_mma)
+            library_call="torch.nn.functional.scaled_dot_product_attention")
+        # the timed launches rewrote both outputs; they must still be right
+        want = flash_ref(q, k, v, causal=True)
+        case["ok"] = (case["ok"] and case["mma_sync"]["ok"]
+                      and flash_compare(got, want)["ok"] and flash_compare(got_mma, want)["ok"])
+        flash_wide.append(case)
+        wide_rows.append({
+            "name": "flash_attention_wide", "config": name, "route": "cuda",
+            "symbol": kern.symbol, "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+            "launches": 0, "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": case["library_ms"], "library_call": case["library_call"],
+            "mma_sync_symbol": mma.symbol, "mma_sync_ms": case["mma_sync_ms"],
+            "bytes": nbytes, "ops": flops, "tflop_s": flops / case["ms"] / 1e9})
+        del q, k, v, qt, kt, vt, got, got_mma, want
+    flash_ok = all(c["ok"] for c in flash + flash_wide)
     if not flash_ok:
-        emit({"phase": "model_kernel_checks", "flash": flash, "flash_mma_timed": flash_mma,
+        emit({"phase": "model_kernel_checks", "flash": flash, "flash_wide_timed": flash_wide,
               "ok": False})
     check(flash_ok, "flash kernel within FLASH_TOL of its plain version in every case")
     ssd_err = 0.0
@@ -600,9 +653,10 @@ def model_kernel_phases(seed: int) -> None:
     torch.cuda.synchronize()
     emit({"phase": "model_kernel_checks", "flash_cases": len(FLASH_CASES),
           "flash_tolerance": {str(k)[6:]: v for k, v in FLASH_TOL.items()},
-          "flash": flash, "flash_f32_zamba2_shape": flash_f32, "flash_mma_timed": flash_mma,
+          "flash": flash, "flash_f32_zamba2_shape": flash_f32, "flash_wide_timed": flash_wide,
           "ssd_cases": len(SSD_CASES), "ssd_tolerance": SSD_TOL, "ssd": ssd,
           "ssd_max_abs_err": ssd_err, "ok": True})
+    return wide_rows
 
 
 def profile_prefill(prefill, params, tokens) -> dict:
@@ -859,8 +913,8 @@ def main(argv=None) -> int:
     kernel_phases(args.seed, (ROWS_PER_BLOCK, 128))
     rows = deployment(args.seed)
     torch.cuda.empty_cache()     # the deployment's tensors went with it
-    model_kernel_phases(args.seed)
-    rows += zamba2(args.seed)
+    wide_rows = model_kernel_phases(args.seed)
+    rows += zamba2(args.seed) + wide_rows
     emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -6,14 +6,15 @@
 // f32 scores, an online softmax over kv tiles with f32 statistics, masked
 // scores -1e30 (kpos >= Skv, and kpos > qpos when causal) with the running
 // maximum starting at -1e30, and output acc / max(l, 1e-30) in q's dtype.
-// Three kernels serve three routes, chosen by dtype and head dim D (the
-// wrapper, repro_torch/kernels/flash_attention/kernel.py, picks the symbol):
+// Two kernels serve the two routes, chosen by dtype (the wrapper,
+// repro_torch/kernels/flash_attention/kernel.py, picks the symbol); a third
+// is kept, off every route, as the timed comparison of the first at large D:
 //
-//   bf16, D in {16, 32, ..., 128}   flash_fwd_wgmma_kernel  (wgmma, TMA)
-//   bf16, D in {144, 160, ..., 256} flash_fwd_mma_kernel    (mma.sync)
+//   bf16, D in {16, 32, ..., 256}   flash_fwd_wgmma_kernel  (wgmma, TMA)
 //   f32,  D in {16, 32, ..., 256}   flash_fwd_f32_kernel    (CUDA cores)
+//   bf16, D in {144, 160, ..., 256} flash_fwd_mma_kernel    (mma.sync; no route)
 //
-// --- bf16, D <= 128: flash_fwd_wgmma_kernel ---------------------------------
+// --- bf16: flash_fwd_wgmma_kernel -------------------------------------------
 // Bounds at Zamba2-2.7B's prefill shape (B 4, S 4096, 32 heads of D 80,
 // causal): one call is 344 GFLOP of matrix products, 0.35 ms at the 989
 // TFLOP/s bf16 tensor-core peak, against 0.34 GB of q, k, v and output
@@ -26,12 +27,13 @@
 //   - a persistent grid of one block per SM; a block walks work items (a q
 //     tile of 128 rows of one head and batch row), q tile fastest and the
 //     longest causal tile first, so that the blocks at work at one time
-//     share the K and V of a few heads in L2;
+//     share the K and V of a few heads in L2 (above D 128: the balanced
+//     order below);
 //   - three warpgroups: a producer and two consumers of 64 q rows each.
 //     setmaxnreg moves registers from the producer (40) to the consumers
 //     (232);
 //   - the producer's one thread issues TMA loads: an item's Q, then K_j and
-//     V_j (128 rows each) into a ring of 3 or 4 stages (as many as fit), each
+//     V_j (128 rows each) into a ring of 2 to 4 stages (as many as fit), each
 //     with a full and an empty mbarrier; Q has its own pair, freed after the
 //     item's last Q K^T, so the next item's Q and first tiles load while the
 //     consumers finish this one. The tensor maps are 4-D over (D, heads, S,
@@ -62,16 +64,38 @@
 // and never read, so that P V is one wgmma of N 80 per k-step. At D 80, Q
 // (20 KB) and 3 stages of K (20 KB) and V (32 KB) take 176 KB: one block per
 // SM, as the registers require anyway.
+// D 144-256: gemma-2b's 256 (B 1, S 4096, 8 heads, 1 kv head, causal:
+// 68.7 GFLOP, 0.070 ms at the bf16 peak, against 0.038 GB, 0.011 ms) and
+// deepseek-v2-lite's MLA at 192 (16 heads and kv heads: 103.1 GFLOP,
+// 0.104 ms, against 0.101 GB, 0.030 ms). The products per score are 2.4-3.2
+// times D 80's, so a consumer's softmax takes about as long as the other
+// consumer's products (at D 80 it took twice as long), and the kernel is
+// bound by the tensor cores, the softmax beside them and how evenly the
+// blocks share the work. Two things change with D above 128:
+//   - kv tiles of 96 rows up to D 192 and 64 above (kBlockKV), so Q K^T is
+//     m64n96k16 or m64n64k16. With 128 rows, one stage of K and V no
+//     longer fits beside Q from D 176 up, and S (64 registers a thread),
+//     P (32) and O (D / 2) leave a consumer too few registers from D 144
+//     up. With 96 and 64 rows: Q 36-64 KB, K + V 58-73 KB a stage, 3
+//     stages at D 144, 2 from D 160; S + P + O 144-176 registers, so the
+//     register split of D <= 128 (below) serves every D. At D 192, 96 rows
+//     took 0.198 ms against 64 rows' 0.214 (tools/flash_probe.py on one
+//     H100): the softmax's fixed cost a tile is spread over more keys;
+//   - a balanced item order (at work_item): at B 1 with 8 or 16 heads, the
+//     order of D <= 128 leaves the busiest SM 1.875 and 1.625 times the
+//     mean number of kv tiles; the balanced order gives it the mean, and
+//     took 0.134 and 0.198 ms there against that order's 0.225 and 0.274
+//     (tools/flash_probe.py on one H100).
+// P V is one wgmma of N = D (up to m64n256k16, 128 accumulators a thread).
 //
-// --- bf16, D 144-256: flash_fwd_mma_kernel -----------------------------------
-// gemma-2b's D 256. A wgmma instance for these needs another register split
-// (the O accumulator alone is 128 registers a thread); until then they run
-// the Ampere-style kernel: one block of 4 warps per (q tile of 64 rows,
-// head, batch), 16 q rows a warp; single-buffered 64-row K and V tiles
-// staged with cp.async (rows past Skv zero-filled); mma.sync m16n8k16 with
-// ldmatrix fragments from rows padded by 16 bytes; P rounded to bf16 for
-// the second product while l sums the f32 probabilities; causal blocks skip
-// the kv tiles above the diagonal.
+// --- bf16, D 144-256: flash_fwd_mma_kernel (no route) ------------------------
+// The Ampere-style kernel that served these head dims before the wgmma
+// kernel did, kept as its timed comparison: one block of 4 warps per (q
+// tile of 64 rows, head, batch), 16 q rows a warp; single-buffered 64-row
+// K and V tiles staged with cp.async (rows past Skv zero-filled); mma.sync
+// m16n8k16 with ldmatrix fragments from rows padded by 16 bytes; P rounded
+// to bf16 for the second product while l sums the f32 probabilities;
+// causal blocks skip the kv tiles above the diagonal.
 //
 // --- f32: flash_fwd_f32_kernel -----------------------------------------------
 // The Pallas kernel's f32 arithmetic throughout (q * scale, both products
@@ -177,12 +201,18 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
 constexpr int kWgRows = 64;                    // q rows per consumer warpgroup
 constexpr int kConsumers = 2;                  // consumer warpgroups
 constexpr int kBlockQ = kWgRows * kConsumers;  // q rows per block
-constexpr int kBlockKV = 128;                  // kv rows per tile
 constexpr int kWgThreads = 128;
 constexpr int kWgmmaThreads = (kConsumers + 1) * kWgThreads;
 constexpr int kBoxCols = 64;                   // one 128-byte swizzle row of bf16
+// kv rows per tile: 128 up to D 128; above, where two stages of 128-row K
+// and V tiles no longer fit beside Q, nor the S, P and O accumulators in a
+// consumer's registers, 96 up to D 192 and 64 above
+template <int D>
+constexpr int kBlockKV = D <= 128 ? 128 : D <= 192 ? 96 : 64;
 // setmaxnreg: registers a thread after the split (128 x 40 + 256 x 232 of
-// the SM's 64 K)
+// the SM's 64 K). 232 hold a consumer's S, P and O at every D (0 spills by
+// ptxas -v); a producer of 24 registers, for consumers of 240, spilled at
+// D 224-256.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 // named barriers 1 and 2 order the two consumers' issues (0 is
@@ -198,7 +228,9 @@ constexpr int kSchedBarrier = 1;
 //   4  clock64() stamps at the steps of the consumer loop (probe_stamp);
 //   8  Q and K tail boxes of 64 columns with the 128-byte swizzle,
 //      zero-filled past D, as V's are (a layout that computes the same);
-//   16 V loads only its first 64-column box.
+//   16 V loads only its first 64-column box;
+//   32 the other item order (block_item): balanced up to D 128, and above
+//      it the order of D <= 128.
 #ifndef FLASH_PROBE
 #define FLASH_PROBE 0
 #endif
@@ -222,11 +254,12 @@ struct WgmmaTiles {
                                     : kTail == 16               ? 32
                                                                 : 64;
   static constexpr int kPitch = kMain * 128 + kTailPitch;  // bytes of a tile row, all boxes
+  static constexpr int kKV = kBlockKV<D>;
   static constexpr int kQBytes = kBlockQ * kPitch;
-  static constexpr int kKBytes = kBlockKV * kPitch;        // one K tile
+  static constexpr int kKBytes = kKV * kPitch;             // one K tile
   // V: all boxes 64 columns wide, so that P V is one product of N = D
   static constexpr int kVBoxes = (D + kBoxCols - 1) / kBoxCols;
-  static constexpr int kVBytes = kBlockKV * 128 * kVBoxes;
+  static constexpr int kVBytes = kKV * 128 * kVBoxes;
   // + 1024: the dynamic base is aligned up to the swizzle atom by hand
   static constexpr int kFree = 232448 - 1024 - 8 * (2 + 4 * 4) - kQBytes;
   static constexpr int kStages =
@@ -312,218 +345,334 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, int p
          (static_cast<uint64_t>(((8 * pitch) >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
+// The "+f" operands of eight accumulator registers from d[i].
+#define WG_D8(i)                                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),      \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
 // d (64 x N, f32) = (scale_d ? d : 0) + A (64 x 16) B (16 x N); A and B in
-// shared memory, K-major, 128-byte swizzle.
+// shared memory, K-major, swizzled (the descriptors say how).
 template <int N>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
 
 template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47},"
+      " %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b,
-                                            int scale_d) {
+                                           int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
       " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d (64 x N, f32) += A (64 x 16, registers: the m16n8k16 A fragment of each
 // warp's 16 rows) B (16 x N); B in shared memory, MN-major (imm-trans-b 1),
-// 128-byte swizzle.
+// 128-byte swizzle. N is the head dim: every multiple of 16 up to 256.
 template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
 
 template <>
 __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                           uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7},"
       " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : WG_D8(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                           uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
       " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : WG_D8(0), WG_D8(8)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                           uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23},"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23},"
       " {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : WG_D8(0), WG_D8(8), WG_D8(16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                           uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
       " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                           uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39},"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39},"
       " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                           uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47},"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47},"
       " {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<112>(float (&d)[56], const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                           uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55},"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55},"
       " {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                           uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
       " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+
+template <>
+__device__ __forceinline__ void wgmma_rs<144>(float (&d)[72], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71},"
+      " {%72, %73, %74, %75}, %76, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79},"
+      " {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<176>(float (&d)[88], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %93, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87},"
+      " {%88, %89, %90, %91}, %92, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72),
+        WG_D8(80)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95},"
+      " {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72),
+        WG_D8(80), WG_D8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<208>(float (&d)[104], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %109, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103},"
+      " {%104, %105, %106, %107}, %108, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72),
+        WG_D8(80), WG_D8(88), WG_D8(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<224>(float (&d)[112], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111},"
+      " {%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72),
+        WG_D8(80), WG_D8(88), WG_D8(96), WG_D8(104)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<240>(float (&d)[120], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %125, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n240k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119},"
+      " {%120, %121, %122, %123}, %124, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72),
+        WG_D8(80), WG_D8(88), WG_D8(96), WG_D8(104), WG_D8(112)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32),
+        WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72),
+        WG_D8(80), WG_D8(88), WG_D8(96), WG_D8(104), WG_D8(112),
+        WG_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WG_D8
 
 // exp2 on the special-function unit, results below 2^-126 flushed to zero
 // (such a probability is lost in bf16 and in l alike).
@@ -533,7 +682,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Online softmax of one 64 x 128 score tile in the S accumulator of a
+// Online softmax of one 64 x KV score tile in the S accumulator of a
 // consumer warpgroup. This thread holds rows `row` and `row + 8`, columns
 // k0 + 8 n + 2 tq + {0, 1} in s[4 n + {0, 1}] and s[4 n + {2, 3}]. Turns s
 // into the f32 probabilities exp2(s scale_log2 - m scale_log2), updates the
@@ -541,8 +690,8 @@ __device__ __forceinline__ float ex2(float x) {
 // the factor by which the output accumulator must be rescaled. Maxima and
 // sums run in 4 partial chains per row: only one warp per scheduler works
 // on a softmax at a time, so latency, not throughput, bounds a long chain.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[kBlockKV / 2], float (&m)[2],
+template <bool kMask, int KV>
+__device__ __forceinline__ void softmax_tile(float (&s)[KV / 2], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2], int row,
                                              int k0, int tq, int Skv, int causal,
                                              float scale_log2) {
@@ -550,7 +699,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBlockKV / 2], float (&m
 #pragma unroll
   for (int c = 0; c < 4; ++c) pm[0][c] = m[0], pm[1][c] = m[1];
 #pragma unroll
-  for (int n = 0; n < kBlockKV / 8; ++n) {
+  for (int n = 0; n < KV / 8; ++n) {
     if (kMask) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -574,7 +723,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBlockKV / 2], float (&m
   }
   float ps[2][4] = {};
 #pragma unroll
-  for (int n = 0; n < kBlockKV / 8; ++n) {
+  for (int n = 0; n < KV / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[4 * n + e] = ex2(fmaf(s[4 * n + e], scale_log2, neg_ms[e >> 1]));
@@ -594,8 +743,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBlockKV / 2], float (&m
 // of the Q tile): D / 16 k-steps of 16 columns (32 bytes), both operands
 // K-major.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s_acc)[kBlockKV / 2], uint32_t sQ, int wrow,
-                                         uint32_t sK) {
+__device__ __forceinline__ void issue_qk(float (&s_acc)[kBlockKV<D> / 2], uint32_t sQ,
+                                         int wrow, uint32_t sK) {
   using T = WgmmaTiles<D>;
   if (kProbe & 2) return wgmma_commit();
 #pragma unroll
@@ -604,9 +753,9 @@ __device__ __forceinline__ void issue_qk(float (&s_acc)[kBlockKV / 2], uint32_t 
     const int x = tail ? T::kMain : kk / 4;
     const int pitch = tail ? T::kTailPitch : 128;
     const uint32_t col = (tail ? kk - 4 * T::kMain : kk % 4) * 32;
-    wgmma_ss<kBlockKV>(
+    wgmma_ss<T::kKV>(
         s_acc, smem_desc(sQ + x * kBlockQ * 128 + wrow * pitch + col, 16, pitch),
-        smem_desc(sK + x * kBlockKV * 128 + col, 16, pitch), kk > 0);
+        smem_desc(sK + x * T::kKV * 128 + col, 16, pitch), kk > 0);
   }
   wgmma_commit();
 }
@@ -615,27 +764,30 @@ __device__ __forceinline__ void issue_qk(float (&s_acc)[kBlockKV / 2], uint32_t 
 // MN-major, in 64-column boxes (the leading byte offset steps to the next).
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
-                                         const uint32_t (&p)[kBlockKV / 16][4], uint32_t sV) {
+                                         const uint32_t (&p)[kBlockKV<D> / 16][4],
+                                         uint32_t sV) {
+  constexpr int kKV = kBlockKV<D>;
   if (kProbe & 2) return wgmma_commit();
 #pragma unroll
-  for (int kk = 0; kk < kBlockKV / 16; ++kk)
-    wgmma_rs<D>(o_acc, p[kk], smem_desc(sV + kk * 16 * 128, kBlockKV * 128, 128));
+  for (int kk = 0; kk < kKV / 16; ++kk)
+    wgmma_rs<D>(o_acc, p[kk], smem_desc(sV + kk * 16 * 128, kKV * 128, 128));
   wgmma_commit();
 }
 
 // The softmax of a tile, masked only where the tile crosses the causal
 // diagonal of this warpgroup's rows (first row wq0) or Skv's edge.
-__device__ __forceinline__ void softmax(float (&s)[kBlockKV / 2], float (&m)[2], float (&l)[2],
+template <int KV>
+__device__ __forceinline__ void softmax(float (&s)[KV / 2], float (&m)[2], float (&l)[2],
                                         float (&alpha)[2], int row, int wq0, int k0, int tq,
                                         int Skv, int causal, float scale_log2) {
   if (kProbe & 1) {
     alpha[0] = alpha[1] = 1.f;
     return;
   }
-  if (k0 + kBlockKV > Skv || (causal && k0 + kBlockKV - 1 > wq0))
-    softmax_tile<true>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
+  if (k0 + KV > Skv || (causal && k0 + KV - 1 > wq0))
+    softmax_tile<true, KV>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
   else
-    softmax_tile<false>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
+    softmax_tile<false, KV>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
 }
 
 // O *= alpha, row by row: the m64nN accumulator holds rows row and row + 8
@@ -653,10 +805,10 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) 
 
 // P as the A operand of P V: the S accumulator of n8 blocks 2 kk and
 // 2 kk + 1 is the m16n8k16 A fragment of k-step kk, rounded to bf16 pairs.
-__device__ __forceinline__ void pack_p(uint32_t (&p)[kBlockKV / 16][4],
-                                       const float (&s)[kBlockKV / 2]) {
+template <int KV>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[KV / 16][4], const float (&s)[KV / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < kBlockKV / 16; ++kk) {
+  for (int kk = 0; kk < KV / 16; ++kk) {
     p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
     p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -675,28 +827,56 @@ __device__ __forceinline__ void probe_stamp(int wg, int tid, int i, int j, int k
 #endif
 }
 
-// One work item: a q tile of kBlockQ rows of one head and batch row. Items
-// run q tile fastest, longest causal tile first, so that the blocks at work
-// at one time share the K and V of a few heads in L2.
+// Work items: a q tile of kBlockQ rows of one head and batch row. A block
+// takes one item of each round of gridDim.x (G) items. Up to D 128, items
+// run q tile fastest (longest causal tile first), then head, then batch
+// row, and block b takes item b of each round, so that the blocks at work
+// at one time share the K and V of a few heads in L2. Above D 128 the
+// order is balanced: q tile slowest (every item of the longest tile first,
+// over all heads and batch rows), and block b takes item b of the even
+// rounds and G - 1 - b of the odd ones (a snake), so that a block that
+// took a long item takes a short one next. At gemma-2b's and
+// deepseek-v2-lite's shapes (B 1, S 4,096, causal, 8 and 16 heads: 256
+// and 512 items on 132 SMs) the busiest SM then gets the mean number of
+// kv tiles, where the first order gives it 1.875 and 1.625 times the mean.
+// It mixes heads, whose K and V (4.2 and 50 MB there) are at most about
+// L2's size; at Zamba2's shape (168 MB of K and V) the balanced order took
+// 1.094 ms against 0.910 for the first (tools/flash_probe.py on one H100),
+// so the instances up to D 128 keep the first.
+template <int D>
+constexpr bool kBalanced = (D > 128) != bool(kProbe & 32);
+
 struct WorkItem {
   int q0, h, b, n_kv;
 };
 
-__device__ __forceinline__ WorkItem work_item(int w, int n_qt, int H, int Sq, int Skv,
-                                              int causal) {
+// The item of round r of this block, or -1 past the last (every later
+// round's is past it too).
+template <int D>
+__device__ __forceinline__ int block_item(int r, int n_items) {
+  const int G = gridDim.x, b = blockIdx.x;
+  const int w = r * G + (kBalanced<D> && (r & 1) ? G - 1 - b : b);
+  return w < n_items ? w : -1;
+}
+
+template <int D>
+__device__ __forceinline__ WorkItem work_item(int w, int n_qt, int H, int B, int Sq,
+                                              int Skv, int causal) {
+  constexpr int kKV = kBlockKV<D>;
   WorkItem it;
-  it.q0 = (n_qt - 1 - w % n_qt) * kBlockQ;
-  it.h = (w / n_qt) % H;
-  it.b = w / (n_qt * H);
-  it.n_kv = (Skv + kBlockKV - 1) / kBlockKV;
+  const int hb = kBalanced<D> ? w % (H * B) : w / n_qt;  // head + H x batch row
+  it.q0 = (n_qt - 1 - (kBalanced<D> ? w / (H * B) : w % n_qt)) * kBlockQ;
+  it.h = hb % H;
+  it.b = hb / H;
+  it.n_kv = (Skv + kKV - 1) / kKV;
   // causal: no kv tile starts past the item's last query row
-  if (causal) it.n_kv = min(it.n_kv, (min(it.q0 + kBlockQ, Sq) - 1) / kBlockKV + 1);
+  if (causal) it.n_kv = min(it.n_kv, (min(it.q0 + kBlockQ, Sq) - 1) / kKV + 1);
   return it;
 }
 
-// A persistent grid: each block walks the items blockIdx.x, + gridDim.x, ...
-// The K/V ring and its phases run on across items, so the producer loads
-// the next item's Q and first tiles while the consumers finish this one.
+// A persistent grid: each block walks its items, one a round. The K/V ring
+// and its phases run on across items, so the producer loads the next
+// item's Q and first tiles while the consumers finish this one.
 template <int D>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -707,6 +887,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        int B, int Sq, int Skv, int H, int KVH, int causal, float scale_log2) {
   using T = WgmmaTiles<D>;
   constexpr int kStages = T::kStages;
+  constexpr int kKV = T::kKV;
   extern __shared__ unsigned char wg_smem[];
   const uint32_t sQ = (smem_addr(wg_smem) + 1023u) & ~1023u;
   const uint32_t sK = sQ + T::kQBytes;               // stage s at + s * kKBytes
@@ -739,8 +920,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumers * kWgThreads) {
       int t = 0;  // kv tiles loaded so far, over all items
-      for (int w = blockIdx.x, i = 0; w < n_items; w += gridDim.x, ++i) {
-        const WorkItem it = work_item(w, n_qt, H, Sq, Skv, causal);
+      for (int i = 0, w = block_item<D>(0, n_items); w >= 0; w = block_item<D>(++i, n_items)) {
+        const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal);
         const int kvh = it.h / (H / KVH);
         // every box of a tile, main boxes first: tile rows r0.., `rows` of them
         auto load_tile = [&](uint32_t dst, const CUtensorMap* main_map,
@@ -761,15 +942,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           const uint32_t parity = ((t / kStages) & 1) ^ 1;  // of the consumers' last release
           if (t >= kStages) mbar_wait(k_empty(s), parity);
           mbar_expect_tx(k_full(s), T::kKBytes);
-          load_tile(sK + s * T::kKBytes, &tm_k, &tm_k_tail, k_full(s), kvh, j * kBlockKV,
-                    kBlockKV);
+          load_tile(sK + s * T::kKBytes, &tm_k, &tm_k_tail, k_full(s), kvh, j * kKV, kKV);
           if (t >= kStages) mbar_wait(v_empty(s), parity);
           constexpr int kVLoaded = kProbe & 16 ? 1 : T::kVBoxes;
-          mbar_expect_tx(v_full(s), kVLoaded * kBlockKV * 128);
+          mbar_expect_tx(v_full(s), kVLoaded * kKV * 128);
 #pragma unroll
           for (int x = 0; x < kVLoaded; ++x)
-            tma_load_4d(sV + s * T::kVBytes + x * kBlockKV * 128, &tm_v, v_full(s),
-                        x * kBoxCols, kvh, j * kBlockKV, it.b);
+            tma_load_4d(sV + s * T::kVBytes + x * kKV * 128, &tm_v, v_full(s), x * kBoxCols,
+                        kvh, j * kKV, it.b);
         }
       }
     }
@@ -779,11 +959,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, tq = lane & 3;
 
-    float s_acc[kBlockKV / 2];
+    float s_acc[kKV / 2];
     float o_acc[D / 2];
-    uint32_t p[kBlockKV / 16][4];
+    uint32_t p[kKV / 16][4];
 #pragma unroll
-    for (int i = 0; i < kBlockKV / 2; ++i) s_acc[i] = 0.f;
+    for (int i = 0; i < kKV / 2; ++i) s_acc[i] = 0.f;
 
     // ping-pong: the two consumers take turns on the tensor cores, each
     // issuing its products once the other has issued; consumer 1 lets
@@ -794,8 +974,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (wg == 1) named_arrive(kSchedBarrier, kPair);
 
     int t = 0;  // kv tiles consumed so far, over all items
-    for (int w = blockIdx.x, i = 0; w < n_items; w += gridDim.x, ++i) {
-      const WorkItem it = work_item(w, n_qt, H, Sq, Skv, causal);
+    for (int i = 0, w = block_item<D>(0, n_items); w >= 0; w = block_item<D>(++i, n_items)) {
+      const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal);
       const int wq0 = it.q0 + wg * kWgRows;          // this warpgroup's first row
       const int row = wq0 + warp * 16 + g;           // this thread's rows: row, row + 8
 #pragma unroll
@@ -814,8 +994,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(s_acc);
       mbar_arrive(k_empty(t % kStages));
       if (it.n_kv == 1) mbar_arrive(q_empty);
-      softmax(s_acc, m, l, alpha, row, wq0, 0, tq, Skv, causal, scale_log2);
-      pack_p(p, s_acc);
+      softmax<kKV>(s_acc, m, l, alpha, row, wq0, 0, tq, Skv, causal, scale_log2);
+      pack_p<kKV>(p, s_acc);
 
       for (int j = 1; j < it.n_kv; ++j) {
         const int tj = t + j;
@@ -840,13 +1020,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         probe_stamp(wg, tid, i, j, 5);
         mbar_arrive(k_empty(s));
         if (j == it.n_kv - 1) mbar_arrive(q_empty);  // Q is read for the last time
-        softmax(s_acc, m, l, alpha, row, wq0, j * kBlockKV, tq, Skv, causal, scale_log2);
+        softmax<kKV>(s_acc, m, l, alpha, row, wq0, j * kKV, tq, Skv, causal, scale_log2);
         probe_stamp(wg, tid, i, j, 6);
         wgmma_wait<0>();                 // P_{j-1} V_{j-1} has landed
         fence_regs(o_acc);
         probe_stamp(wg, tid, i, j, 7);
         mbar_arrive(v_empty(sp));
-        pack_p(p, s_acc);
+        pack_p<kKV>(p, s_acc);
       }
 
       // the last tile's O += P V; consumer 1 gives no turn after its last
@@ -859,7 +1039,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(o_acc);
       wgmma_fence();
       issue_pv<D>(o_acc, p, sV + sl * T::kVBytes);
-      if (wg == 0 || w + gridDim.x < n_items) named_arrive(next_turn, kPair);
+      if (wg == 0 || block_item<D>(i + 1, n_items) >= 0) named_arrive(next_turn, kPair);
       wgmma_wait<0>();
       fence_regs(o_acc);
       mbar_arrive(v_empty(sl));
@@ -882,7 +1062,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// --- the mma.sync kernel (bf16, D 144-256) -------------------------------------
+// --- the mma.sync kernel (bf16, D 144-256; no route) -------------------------
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -1234,7 +1414,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   CUtensorMap tm[5];
   const void* ptr[3] = {q, k, v};
   const int seq[3] = {Sq, Skv, Skv}, heads[3] = {H, KVH, KVH};
-  const int rows[3] = {kBlockQ, kBlockKV, kBlockKV};
+  const int rows[3] = {kBlockQ, T::kKV, T::kKV};
   for (int i = 0; i < 3; ++i)
     if (!encode_4d(encode, &tm[i], ptr[i], B, seq[i], heads[i], D, rows[i], 128) ||
         (i < 2 &&
@@ -1294,7 +1474,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   case d:                       \
     return launcher<d>(q, k, v, o, B, Sq, Skv, H, KVH, causal, scale, stream);
 
-// bf16, D a multiple of 16 in [16, 128]; q, k, v 16-byte aligned (TMA).
+// bf16, D a multiple of 16 in [16, 256]; q, k, v 16-byte aligned (TMA).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                                          int B, int Sq, int Skv, int H, int KVH, int D,
                                          int causal, float scale, cudaStream_t stream) {
@@ -1302,12 +1482,15 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
     FLASH_CASE(launch_wgmma, 16) FLASH_CASE(launch_wgmma, 32) FLASH_CASE(launch_wgmma, 48)
     FLASH_CASE(launch_wgmma, 64) FLASH_CASE(launch_wgmma, 80) FLASH_CASE(launch_wgmma, 96)
     FLASH_CASE(launch_wgmma, 112) FLASH_CASE(launch_wgmma, 128)
+    FLASH_CASE(launch_wgmma, 144) FLASH_CASE(launch_wgmma, 160) FLASH_CASE(launch_wgmma, 176)
+    FLASH_CASE(launch_wgmma, 192) FLASH_CASE(launch_wgmma, 208) FLASH_CASE(launch_wgmma, 224)
+    FLASH_CASE(launch_wgmma, 240) FLASH_CASE(launch_wgmma, 256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// bf16, D a multiple of 16 in [144, 256].
+// bf16, D a multiple of 16 in [144, 256]; no route takes it.
 extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void* v, void* o,
                                        int B, int Sq, int Skv, int H, int KVH, int D, int causal,
                                        float scale, cudaStream_t stream) {

@@ -2,17 +2,21 @@
 ``repro.kernels.flash_attention.kernel.flash_attention_pallas``.
 
 ``csrc/flash_attention.cu`` holds three kernels, one launcher each; the
-dtype and head dim pick one (``route``):
+dtype picks one of the first two (``route``):
 
-- bf16, head dim 16-128: ``flash_attention_fwd_wgmma``. One block per
+- bf16, every head dim: ``flash_attention_fwd_wgmma``. One block per
   SM walks tiles of 128 q rows; a producer warpgroup streams Q and the K
-  and V tiles with TMA into an mbarrier ring of 3-4 stages; two consumer
+  and V tiles with TMA into an mbarrier ring of 2-4 stages; two consumer
   warpgroups of 64 q rows run both products as ``wgmma`` (P from
-  registers) and the online softmax, in turn on the tensor cores.
-- bf16, head dim 144-256: ``flash_attention_fwd_mma``, ``mma.sync``
-  m16n8k16 with K and V tiles staged by ``cp.async``.
+  registers) and the online softmax, in turn on the tensor cores. The kv
+  tiles are 128 rows up to head dim 128, 96 up to 192 and 64 above;
+  above 128 the blocks take the work items in a balanced order.
 - f32: ``flash_attention_fwd_f32``, f32 products on the CUDA cores, as
   the Pallas kernel computes f32 inputs.
+- ``flash_attention_fwd_mma``, bf16 head dims 144-256 by ``mma.sync``
+  m16n8k16 with K and V tiles staged by ``cp.async``: no route takes it.
+  It is kept as the wgmma kernel's timed comparison at those head dims
+  (``launch(..., kernel=FLASH_MMA)``).
 
 Every kernel reads kv-head ``h // (H // KVH)`` (no repeat) and keeps the
 softmax statistics in f32. The head dim is a multiple of 16 up to 256.
@@ -34,8 +38,6 @@ from repro_torch.kernels._checks import (GRID_YZ_MAX, check_attention,
 
 #: the kernels' dtypes, those of ``flash_attention_pallas``
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-#: the largest bf16 head dim of the wgmma kernel
-WGMMA_MAX_HEAD_DIM = 128
 
 _ARGS = [_build.P] * 4 + [_build.I32] * 7 + [_build.F32]
 FLASH_WGMMA = _build.Kernel("flash_attention", "flash_attention_fwd_wgmma", _ARGS)
@@ -45,24 +47,28 @@ KERNELS = (FLASH_WGMMA, FLASH_MMA, FLASH_F32)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> _build.Kernel:
-    """The kernel that serves q, k, v of this dtype and head dim."""
+    """The kernel that serves q, k, v of this dtype and head dim (each
+    kernel is built for every head dim the op takes: a multiple of 16 up
+    to 256)."""
     if dtype == torch.float32:
         return FLASH_F32
     if dtype != torch.bfloat16:
         raise ValueError(f"no flash kernel takes {dtype}")
-    return FLASH_WGMMA if head_dim <= WGMMA_MAX_HEAD_DIM else FLASH_MMA
+    return FLASH_WGMMA
 
 
 def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor, *, causal: bool, scale: Optional[float] = None
-           ) -> None:
-    """Launch into ``out`` without checks: only for tensors that
-    ``flash_attention_cuda`` has accepted."""
+           v: torch.Tensor, *, causal: bool, scale: Optional[float] = None,
+           kernel: Optional[_build.Kernel] = None) -> None:
+    """Launch ``kernel`` (default: the routed one) into ``out`` without
+    checks: only for tensors that ``flash_attention_cuda`` has accepted,
+    and of the dtype and head dim the kernel is built for."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
-    route(q.dtype, D)(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, Sq, Skv, H, KVH, D, int(causal),
-                      1.0 / math.sqrt(D) if scale is None else scale)
+    kernel = route(q.dtype, D) if kernel is None else kernel
+    kernel(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           B, Sq, Skv, H, KVH, D, int(causal),
+           1.0 / math.sqrt(D) if scale is None else scale)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,9 @@ version on the card (``cuda`` marker; skips elsewhere):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_attention.py
 """
 
+import re
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -209,11 +212,16 @@ def test_flash_kernel_matches_plain_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, cau
     _check_on_card(q, k, v, causal, flash_kernel.route(dtype, D))
 
 
-def _check_on_card(q, k, v, causal, kernel):
-    """One call of the kernel wrapper: it must launch ``kernel`` once and
-    agree with the plain version within ``CARD_TOL``."""
+def _check_on_card(q, k, v, causal, kernel, direct=False):
+    """One call of the kernel wrapper (or, ``direct``, of ``kernel`` itself
+    through ``launch``): it must launch ``kernel`` once and agree with the
+    plain version within ``CARD_TOL``."""
     counts = {kern.symbol: kern.launches for kern in flash_kernel.KERNELS}
-    got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    if direct:
+        got = torch.empty_like(q)
+        flash_kernel.launch(got, q, k, v, causal=causal, kernel=kernel)
+    else:
+        got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
     torch.cuda.synchronize()
     counts = {kern.symbol: kern.launches - counts[kern.symbol]
               for kern in flash_kernel.KERNELS}
@@ -245,22 +253,90 @@ def _check_on_card(q, k, v, causal, kernel):
     (1, 4200, 4200, 2, 1, 80, True),
 ])
 def test_wgmma_flash_kernel_edges_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, causal):
-    q, k, v = (torch.randn((B, S, n, D), generator=cuda_gen, device="cuda").bfloat16()
-               for S, n in ((Sq, H), (Skv, KVH), (Skv, KVH)))
-    _check_on_card(q, k, v, causal, flash_kernel.FLASH_WGMMA)
+    _check_on_card(*_bf16_qkv(cuda_gen, B, Sq, Skv, H, KVH, D), causal,
+                   flash_kernel.FLASH_WGMMA)
+
+
+def _bf16_qkv(gen, B, Sq, Skv, H, KVH, D):
+    return [torch.randn((B, S, n, D), generator=gen, device="cuda").bfloat16()
+            for S, n in ((Sq, H), (Skv, KVH), (Skv, KVH))]
+
+
+# the wgmma kernel's wide instances (kv tiles of 96 rows up to 192 and 64
+# above, the balanced item order): a head dim of each tail class of the Q
+# and K boxes at each kv tile (144 and 208, 160 and 224, 176 and 240: 16, 32
+# and 48 columns past the 64-column boxes; 192 and 256: none), q and kv
+# tiles cut by Sq and Skv within a batch row (B >= 2), Sq != Skv both ways,
+# MQA and GQA, non-causal, and a causal row of 4,200 keys at 256
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,causal", [
+    (2, 200, 200, 4, 2, 144, True),
+    (3, 333, 333, 4, 4, 160, False),
+    (2, 190, 190, 6, 3, 176, True),
+    (2, 100, 300, 4, 1, 192, True),
+    (2, 300, 100, 4, 1, 192, True),
+    (2, 200, 200, 4, 1, 208, True),
+    (2, 150, 250, 4, 2, 224, False),
+    (2, 190, 190, 6, 3, 240, True),
+    (2, 129, 257, 8, 2, 256, False),
+    (2, 257, 129, 8, 2, 256, True),
+    (2, 256, 256, 8, 1, 256, True),
+    (1, 4200, 4200, 2, 1, 256, True),
+])
+def test_wgmma_flash_kernel_wide_head_dims_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, causal):
+    _check_on_card(*_bf16_qkv(cuda_gen, B, Sq, Skv, H, KVH, D), causal,
+                   flash_kernel.FLASH_WGMMA)
+
+
+# the mma.sync kernel, which no route takes any more, launched directly
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,causal", [
+    (1, 130, 130, 8, 1, 256, True),     # gemma-2b's MQA shape
+    (2, 200, 150, 4, 2, 144, True),
+    (2, 150, 200, 4, 2, 144, False),
+])
+def test_mma_flash_kernel_matches_plain_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, causal):
+    _check_on_card(*_bf16_qkv(cuda_gen, B, Sq, Skv, H, KVH, D), causal,
+                   flash_kernel.FLASH_MMA, direct=True)
 
 
 @pytest.mark.parametrize("dtype,D,symbol", [
     (torch.bfloat16, 16, "flash_attention_fwd_wgmma"),
     (torch.bfloat16, 80, "flash_attention_fwd_wgmma"),
     (torch.bfloat16, 128, "flash_attention_fwd_wgmma"),
-    (torch.bfloat16, 144, "flash_attention_fwd_mma"),
-    (torch.bfloat16, 256, "flash_attention_fwd_mma"),
+    (torch.bfloat16, 144, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 160, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 176, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 192, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 208, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 224, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 240, "flash_attention_fwd_wgmma"),
+    (torch.bfloat16, 256, "flash_attention_fwd_wgmma"),
     (torch.float32, 80, "flash_attention_fwd_f32"),
     (torch.float32, 256, "flash_attention_fwd_f32"),
 ])
 def test_flash_route_picks_kernel_by_dtype_and_head_dim(dtype, D, symbol):
     assert flash_kernel.route(dtype, D).symbol == symbol
+
+
+def _launcher_head_dims(symbol):
+    """The head dims of the ``FLASH_CASE`` lines in ``symbol``'s switch."""
+    source = (Path(flash_kernel.__file__).resolve().parents[1] / "csrc"
+              / "flash_attention.cu").read_text()
+    body = source.split(f'extern "C" int {symbol}(', 1)[1].split("default:", 1)[0]
+    return [int(d) for d in re.findall(r"FLASH_CASE\(\w+, (\d+)\)", body)]
+
+
+def test_flash_launchers_build_every_head_dim_their_route_sends():
+    """The switches of the source and ``route`` cannot drift apart: every
+    head dim the op takes (a multiple of 16 up to 256) has an instance in
+    the launcher its dtype routes to."""
+    head_dims = list(range(16, 257, 16))
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in head_dims:
+            assert D in _launcher_head_dims(flash_kernel.route(dtype, D).symbol)
+    assert _launcher_head_dims("flash_attention_fwd_wgmma") == head_dims
+    assert _launcher_head_dims("flash_attention_fwd_mma") == list(range(144, 257, 16))
 
 
 def test_flash_route_refuses_other_dtypes():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Probe the wgmma flash-attention kernel on the card: where its time goes.
 
-    python3 tools/flash_probe.py [--runs N] [--compare NAME=SOURCE ...]
+    python3 tools/flash_probe.py [--shape zamba2|gemma-2b|deepseek-v2-lite]
+                                 [--runs N] [--compare NAME=SOURCE ...]
 
 Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` with ``nvcc``
 once for each setting of the kernel's ``FLASH_PROBE`` switches (see the
@@ -16,20 +17,31 @@ source) into ``build/flash_probe/``, all builds at once:
   swizzle, zero-filled past D, as V's are;
 - ``loads_wide_tail``: ``loads_only`` with that layout;
 - ``loads_v_one_box``: ``loads_only`` loading only V's first 64-column box;
+- ``other_order``: the other order of work items (at ``block_item`` in
+  the source): the balanced order up to head dim 128, the order of head
+  dims up to 128 above it;
 - ``trace``: stamps ``clock64()`` at each step of the consumer loop for
   the first item of block 0.
+
+The ``kernel`` build also runs ``ptxas -v``: one line per kernel instance
+gives its registers a thread, stack frame and spill bytes, and any ptxas
+warning is printed.
 
 Each ``--compare NAME=SOURCE`` builds another version of the source as it
 is (for example an earlier commit's, unpacked with ``git show``) and times
 it as ``NAME``. Every build's ``flash_attention_fwd_wgmma`` is timed with
-``chip_smoke.time_ms`` (median of ``--runs``) at Zamba2-2.7B's prefill
-shape (B 4, S 4096, 32 heads of 80, causal), at head dims 64 and 128 and
-non-causal at 80, beside ``scaled_dot_product_attention`` on the same
-inputs. ``kernel``, ``wide_tail`` and the compared sources must match the
-plain version by ``chip_smoke.flash_compare`` (``FLASH_TOL``); the others
-compute something else by design. The trace prints, per consumer
-warpgroup, the median clocks of each step over the steady kv tiles of a
-non-causal row.
+``chip_smoke.time_ms`` (median of ``--runs``) at the shapes of
+``--shape``, beside ``scaled_dot_product_attention`` on the same inputs:
+``zamba2`` (the default) is Zamba2-2.7B's prefill shape (B 4, S 4096, 32
+heads of 80, causal), with head dims 64 and 128 and non-causal at 80;
+``gemma-2b`` is B 1, S 4096, 8 heads, 1 kv head of 256, causal;
+``deepseek-v2-lite`` B 1, S 4096, 16 heads of 192, causal. At the two
+wide shapes the ``mma.sync`` kernel of the ``kernel`` build is timed as
+well. ``kernel``, ``wide_tail``, ``other_order`` and the compared sources
+must match the plain version by ``chip_smoke.flash_compare``
+(``FLASH_TOL``); the others compute something else by design. The trace
+prints, per consumer warpgroup, the median clocks of each step over the
+steady kv tiles of a non-causal row at the shape's first head dim.
 
 Prints one JSON object per line; exits non-zero without a CUDA device or
 when a checked build disagrees with the plain version.
@@ -41,6 +53,7 @@ import argparse
 import ctypes
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -51,12 +64,19 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu"
 OUT = ROOT / "build" / "flash_probe"
-SHAPES = [(4, 4096, 32, 80, True), (4, 4096, 32, 64, True),
-          (4, 4096, 32, 128, True), (4, 4096, 32, 80, False)]
+# --shape -> the timed shapes (B, S, H, KVH, D, causal); the first one's
+# head dim, non-causal, is traced
+SHAPES = {
+    "zamba2": [(4, 4096, 32, 32, 80, True), (4, 4096, 32, 32, 64, True),
+               (4, 4096, 32, 32, 128, True), (4, 4096, 32, 32, 80, False)],
+    "gemma-2b": [(1, 4096, 8, 1, 256, True)],
+    "deepseek-v2-lite": [(1, 4096, 16, 16, 192, True)],
+}
 # name -> FLASH_PROBE bits (the switches at kProbe in the source)
 VARIANTS = {"kernel": 0, "no_softmax": 1, "no_products": 2, "loads_only": 3,
-            "wide_tail": 8, "loads_wide_tail": 11, "loads_v_one_box": 19, "trace": 4}
-CHECKED = {"kernel", "wide_tail"}
+            "wide_tail": 8, "loads_wide_tail": 11, "loads_v_one_box": 19,
+            "other_order": 32, "trace": 4}
+CHECKED = {"kernel", "wide_tail", "other_order"}
 # the steps between the trace's stamps 0 -> 1 -> ... -> 7 -> the next tile's 0
 STEPS = ["wait_k", "turn", "issue_qk", "rescale_wait_v", "issue_pv_wait_s",
          "softmax", "wait_pv", "pack_to_next"]
@@ -67,12 +87,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def build(compare: dict) -> dict:
+def build(variants: dict, compare: dict) -> dict:
     from repro_torch.kernels import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    builds = {name: (SOURCE, [f"-DFLASH_PROBE={bits}"]) for name, bits in VARIANTS.items()}
+    builds = {name: (SOURCE, [f"-DFLASH_PROBE={bits}"]) for name, bits in variants.items()}
+    builds["kernel"][1].extend(["-Xptxas", "-v"])
     builds.update({name: (Path(src), []) for name, src in compare.items()})
     for name, (src, flags) in builds.items():
         lib = OUT / f"{name}.so"
@@ -84,12 +105,39 @@ def build(compare: dict) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {name} probe:\n{log}")
+        if name == "kernel":
+            emit_ptxas(log)
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 
 
-def launcher(lib):
-    fn = lib.flash_attention_fwd_wgmma
+def emit_ptxas(log: str) -> None:
+    """One line per kernel instance of ``ptxas -v``'s report, and every
+    ptxas warning."""
+    entry = None
+    for line in log.splitlines():
+        if "warning" in line:
+            emit({"probe": "ptxas_warning", "line": line.strip()})
+        m = re.search(r"Compiling entry function '\w*?flash_fwd_(\w+?)_kernelILi(\d+)E", line)
+        if m:
+            entry = {"probe": "ptxas", "kernel": m.group(1), "D": int(m.group(2))}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            emit(entry)
+            entry = None
+
+
+def launcher(lib, symbol="flash_attention_fwd_wgmma"):
+    fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -98,6 +146,7 @@ def launcher(lib):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="zamba2")
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--compare", action="append", default=[], metavar="NAME=SOURCE",
                     help="another flash_attention.cu to build and time as NAME")
@@ -111,49 +160,56 @@ def main(argv=None) -> int:
     from chip_smoke import flash_compare, nvidia_smi, time_ms
     from repro_torch.kernels.flash_attention.ref import flash_ref
 
-    emit({"probe": "device", "nvidia_smi": nvidia_smi()})
-    libs = build(compare)
+    emit({"probe": "device", "nvidia_smi": nvidia_smi(), "shape": args.shape})
+    shapes = SHAPES[args.shape]
+    libs = build(VARIANTS, compare)
     checked = CHECKED | set(compare)
     timed = [n for n in [*VARIANTS, *compare] if n != "trace"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
+
+    def qkv(B, S, H, KVH, D):
+        return [torch.randn((B, S, n, D), generator=gen, device="cuda").bfloat16()
+                for n in (H, KVH, KVH)]
+
     ok = True
-    for B, S, H, D, causal in SHAPES:
-        q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
-                   for _ in range(3))
+    for B, S, H, KVH, D, causal in shapes:
+        q, k, v = qkv(B, S, H, KVH, D)
         out = torch.empty_like(q)
         want = torch.cat([flash_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
                           for i in range(B)])
         flops = 4.0 * B * H * D * (S * (S + 1) / 2 if causal else S * S)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row = {"probe": "time", "shape": [B, S, H, D, causal], "gflop": flops / 1e9,
+        row = {"probe": "time", "shape": [B, S, H, KVH, D, causal], "gflop": flops / 1e9,
                "sdpa_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=causal), args.runs)}
-        for name in timed:
-            fn = launcher(libs[name])
+                   qt, kt, vt, is_causal=causal, enable_gqa=True), args.runs)}
+        runs = [(n, libs[n], "flash_attention_fwd_wgmma") for n in timed]
+        if D > 128:
+            runs.append(("mma_sync", libs["kernel"], "flash_attention_fwd_mma"))
+        for name, lib, symbol in runs:
+            fn = launcher(lib, symbol)
 
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S,
-                         H, H, D, int(causal), 1.0 / math.sqrt(D), stream)
+                         H, KVH, D, int(causal), 1.0 / math.sqrt(D), stream)
                 if err:
                     raise RuntimeError(f"{name} probe: CUDA error {err}")
 
             row[f"{name}_ms"] = time_ms(call, args.runs)
-            if name in checked:
+            if name in checked or name == "mma_sync":
                 call()
                 got = flash_compare(out, want)
                 row[f"{name}_check"] = got
                 ok = ok and got["ok"]
         emit(row)
         del q, k, v, out, want, qt, kt, vt
-    # the trace: a non-causal row of 32 kv tiles at head dim 80
-    B, S, H, D = 4, 4096, 32, 80
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
-               for _ in range(3))
+    # the trace: a non-causal row at the first shape's head dim
+    B, S, H, KVH, D, _ = shapes[0]
+    q, k, v = qkv(B, S, H, KVH, D)
     out = torch.empty_like(q)
     fn = launcher(libs["trace"])
     for _ in range(3):
-        fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S, H, H, D, 0,
+        fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S, H, KVH, D, 0,
            1.0 / math.sqrt(D), stream)
     torch.cuda.synchronize()
     n = 2 * TRACE_TILES * TRACE_STAMPS
@@ -170,7 +226,7 @@ def main(argv=None) -> int:
             for name, a, b in zip(STEPS, marks, marks[1:]):
                 steps[name].append(b - a)
             steps["tile"].append(marks[-1] - marks[0])
-        emit({"probe": "trace", "shape": [B, S, H, D, False], "warpgroup": wg,
+        emit({"probe": "trace", "shape": [B, S, H, KVH, D, False], "warpgroup": wg,
               "median_clocks": {n: statistics.median(x) for n, x in steps.items()}})
     emit({"probe": "done", "ok": ok})
     return 0 if ok else 1
