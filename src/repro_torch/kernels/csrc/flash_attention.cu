@@ -27,8 +27,8 @@
 //   - a persistent grid of one block per SM; a block walks work items (a q
 //     tile of 128 rows of one head and batch row), q tile fastest and the
 //     longest causal tile first, so that the blocks at work at one time
-//     share the K and V of a few heads in L2 (above D 128: the balanced
-//     order below);
+//     share the K and V of a few heads in L2 (where the K and V that the
+//     items read fit in L2: the balanced order below);
 //   - three warpgroups: a producer and two consumers of 64 q rows each.
 //     setmaxnreg moves registers from the producer (40) to the consumers
 //     (232);
@@ -79,13 +79,20 @@
 //     up. With 96 and 64 rows: Q 36-64 KB, K + V 58-73 KB a stage, 3
 //     stages at D 144, 2 from D 160; S + P + O 144-176 registers, so the
 //     register split of D <= 128 (below) serves every D. At D 192, 96 rows
-//     took 0.198 ms against 64 rows' 0.214 (tools/flash_probe.py on one
-//     H100): the softmax's fixed cost a tile is spread over more keys;
-//   - a balanced item order (at work_item): at B 1 with 8 or 16 heads, the
-//     order of D <= 128 leaves the busiest SM 1.875 and 1.625 times the
-//     mean number of kv tiles; the balanced order gives it the mean, and
-//     took 0.134 and 0.198 ms there against that order's 0.225 and 0.274
-//     (tools/flash_probe.py on one H100).
+//     took 0.198 ms against 64 rows' 0.214 (tools/flash_probe.py
+//     --shape deepseek-v2-lite --compare, on an H100 80GB HBM3 at 700 W):
+//     the softmax's fixed cost a tile is spread over more keys;
+//   - the item order (at work_item) is the launcher's choice, from the
+//     bytes of K and V that the items read (all, or half under the causal
+//     mask) against L2's size, not from D. At B 1 with 8 or 16 heads the
+//     head-major order leaves the busiest SM 1.875 and 1.615 times the
+//     mean number of kv tiles; the balanced order gives it the mean and
+//     took 0.139 and 0.194 ms at gemma-2b's and deepseek-v2-lite's shapes
+//     against 0.228 and 0.276. At B 4 gemma-2b's K and V (17 MB) still
+//     fit: 0.503 against 0.559 ms; deepseek-v2-lite's (201 MB) do not, and
+//     head-major took 0.802 against 0.890, as at Zamba2's B 4 (0.929
+//     against 1.172). (tools/flash_probe.py --batch 1 2 4, on an H100 80GB
+//     HBM3 at 700 W.)
 // P V is one wgmma of N = D (up to m64n256k16, 128 accumulators a thread).
 //
 // --- bf16, D 144-256: flash_fwd_mma_kernel (no route) ------------------------
@@ -229,8 +236,8 @@ constexpr int kSchedBarrier = 1;
 //   8  Q and K tail boxes of 64 columns with the 128-byte swizzle,
 //      zero-filled past D, as V's are (a layout that computes the same);
 //   16 V loads only its first 64-column box;
-//   32 the other item order (block_item): balanced up to D 128, and above
-//      it the order of D <= 128.
+//   32 the other item order (block_item): the one the launcher does not
+//      pick.
 #ifndef FLASH_PROBE
 #define FLASH_PROBE 0
 #endif
@@ -828,44 +835,39 @@ __device__ __forceinline__ void probe_stamp(int wg, int tid, int i, int j, int k
 }
 
 // Work items: a q tile of kBlockQ rows of one head and batch row. A block
-// takes one item of each round of gridDim.x (G) items. Up to D 128, items
-// run q tile fastest (longest causal tile first), then head, then batch
-// row, and block b takes item b of each round, so that the blocks at work
-// at one time share the K and V of a few heads in L2. Above D 128 the
-// order is balanced: q tile slowest (every item of the longest tile first,
-// over all heads and batch rows), and block b takes item b of the even
-// rounds and G - 1 - b of the odd ones (a snake), so that a block that
-// took a long item takes a short one next. At gemma-2b's and
-// deepseek-v2-lite's shapes (B 1, S 4,096, causal, 8 and 16 heads: 256
-// and 512 items on 132 SMs) the busiest SM then gets the mean number of
-// kv tiles, where the first order gives it 1.875 and 1.625 times the mean.
-// It mixes heads, whose K and V (4.2 and 50 MB there) are at most about
-// L2's size; at Zamba2's shape (168 MB of K and V) the balanced order took
-// 1.094 ms against 0.910 for the first (tools/flash_probe.py on one H100),
-// so the instances up to D 128 keep the first.
-template <int D>
-constexpr bool kBalanced = (D > 128) != bool(kProbe & 32);
-
+// takes one item of each round of gridDim.x (G) items, in one of two
+// orders (kBal), an instance each, which the launcher picks:
+//   - head-major: q tile fastest (longest causal tile first), then head,
+//     then batch row, and block b takes item b of each round, so that the
+//     blocks at work at one time share the K and V of a few heads in L2;
+//   - balanced: q tile slowest (every item of the longest tile first, over
+//     all heads and batch rows), and block b takes item b of the even
+//     rounds and G - 1 - b of the odd ones (a snake), so that a block that
+//     took a long item takes a short one next. The busiest SM then gets
+//     the mean number of kv tiles (1.000 and 1.004 times it at gemma-2b's
+//     and deepseek-v2-lite's shapes, B 1, where head-major gives 1.875 and
+//     1.615), but the blocks at work at one time read every head's K and V.
+// So the launcher takes the balanced order when the K and V the items read
+// fit in L2, head-major when they do not (see launch_wgmma).
 struct WorkItem {
   int q0, h, b, n_kv;
 };
 
 // The item of round r of this block, or -1 past the last (every later
 // round's is past it too).
-template <int D>
-__device__ __forceinline__ int block_item(int r, int n_items) {
+__device__ __forceinline__ int block_item(int r, int n_items, int balanced) {
   const int G = gridDim.x, b = blockIdx.x;
-  const int w = r * G + (kBalanced<D> && (r & 1) ? G - 1 - b : b);
+  const int w = r * G + (balanced && (r & 1) ? G - 1 - b : b);
   return w < n_items ? w : -1;
 }
 
 template <int D>
 __device__ __forceinline__ WorkItem work_item(int w, int n_qt, int H, int B, int Sq,
-                                              int Skv, int causal) {
+                                              int Skv, int causal, int balanced) {
   constexpr int kKV = kBlockKV<D>;
   WorkItem it;
-  const int hb = kBalanced<D> ? w % (H * B) : w / n_qt;  // head + H x batch row
-  it.q0 = (n_qt - 1 - (kBalanced<D> ? w / (H * B) : w % n_qt)) * kBlockQ;
+  const int hb = balanced ? w % (H * B) : w / n_qt;  // head + H x batch row
+  it.q0 = (n_qt - 1 - (balanced ? w / (H * B) : w % n_qt)) * kBlockQ;
   it.h = hb % H;
   it.b = hb / H;
   it.n_kv = (Skv + kKV - 1) / kKV;
@@ -877,7 +879,7 @@ __device__ __forceinline__ WorkItem work_item(int w, int n_qt, int H, int B, int
 // A persistent grid: each block walks its items, one a round. The K/V ring
 // and its phases run on across items, so the producer loads the next
 // item's Q and first tiles while the consumers finish this one.
-template <int D>
+template <int D, bool kBal>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
@@ -885,6 +887,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_q_tail,
                        const __grid_constant__ CUtensorMap tm_k_tail, bf16* __restrict__ o,
                        int B, int Sq, int Skv, int H, int KVH, int causal, float scale_log2) {
+  constexpr int balanced = kBal;
   using T = WgmmaTiles<D>;
   constexpr int kStages = T::kStages;
   constexpr int kKV = T::kKV;
@@ -920,8 +923,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumers * kWgThreads) {
       int t = 0;  // kv tiles loaded so far, over all items
-      for (int i = 0, w = block_item<D>(0, n_items); w >= 0; w = block_item<D>(++i, n_items)) {
-        const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal);
+      for (int i = 0, w = block_item(0, n_items, balanced); w >= 0;
+           w = block_item(++i, n_items, balanced)) {
+        const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal, balanced);
         const int kvh = it.h / (H / KVH);
         // every box of a tile, main boxes first: tile rows r0.., `rows` of them
         auto load_tile = [&](uint32_t dst, const CUtensorMap* main_map,
@@ -974,8 +978,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (wg == 1) named_arrive(kSchedBarrier, kPair);
 
     int t = 0;  // kv tiles consumed so far, over all items
-    for (int i = 0, w = block_item<D>(0, n_items); w >= 0; w = block_item<D>(++i, n_items)) {
-      const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal);
+    for (int i = 0, w = block_item(0, n_items, balanced); w >= 0;
+         w = block_item(++i, n_items, balanced)) {
+      const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal, balanced);
       const int wq0 = it.q0 + wg * kWgRows;          // this warpgroup's first row
       const int row = wq0 + warp * 16 + g;           // this thread's rows: row, row + 8
 #pragma unroll
@@ -1039,7 +1044,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(o_acc);
       wgmma_fence();
       issue_pv<D>(o_acc, p, sV + sl * T::kVBytes);
-      if (wg == 0 || block_item<D>(i + 1, n_items) >= 0) named_arrive(next_turn, kPair);
+      if (wg == 0 || block_item(i + 1, n_items, balanced) >= 0) named_arrive(next_turn, kPair);
       wgmma_wait<0>();
       fence_regs(o_acc);
       mbar_arrive(v_empty(sl));
@@ -1421,17 +1426,26 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
          !encode_4d(encode, &tm[3 + i], ptr[i], B, seq[i], heads[i], D, rows[i], tail_pitch)))
       return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = WgmmaTiles<D>::kSmem;
-  const cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  // the item order (work_item), an instance each: balanced when the K and
+  // V that the items read fit in L2 (all of them, or half under the causal
+  // mask, where an item reads half of its head's on average), head-major
+  // when they do not
+  int l2 = 0;
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device);
   if (e != cudaSuccess) return e;
+  const long long kv_bytes = 2LL * B * KVH * Skv * D * static_cast<long long>(sizeof(bf16));
+  const int balanced = ((causal ? kv_bytes / 2 : kv_bytes) <= l2) != bool(kProbe & 32);
+  auto kern = balanced ? flash_fwd_wgmma_kernel<D, true> : flash_fwd_wgmma_kernel<D, false>;
+  const cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
   const long long items = static_cast<long long>((Sq + kBlockQ - 1) / kBlockQ) * H * B;
   if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(items < sms ? items : sms);  // one block per SM
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
-  flash_fwd_wgmma_kernel<D><<<grid, kWgmmaThreads, smem, stream>>>(
+  kern<<<grid, kWgmmaThreads, smem, stream>>>(
       tm[0], tm[1], tm[2], tm[3], tm[4], static_cast<bf16*>(o), B, Sq, Skv, H, KVH,
       causal, scale_log2);
   return cudaGetLastError();

@@ -9,8 +9,10 @@ dtype picks one of the first two (``route``):
   and V tiles with TMA into an mbarrier ring of 2-4 stages; two consumer
   warpgroups of 64 q rows run both products as ``wgmma`` (P from
   registers) and the online softmax, in turn on the tensor cores. The kv
-  tiles are 128 rows up to head dim 128, 96 up to 192 and 64 above;
-  above 128 the blocks take the work items in a balanced order.
+  tiles are 128 rows up to head dim 128, 96 up to 192 and 64 above.
+  Where all of K and V fit in L2 together, the blocks take the work
+  items in a balanced order (longest first over all heads); otherwise
+  head-major, so that the blocks at work at one time share a few heads.
 - f32: ``flash_attention_fwd_f32``, f32 products on the CUDA cores, as
   the Pallas kernel computes f32 inputs.
 - ``flash_attention_fwd_mma``, bf16 head dims 144-256 by ``mma.sync``

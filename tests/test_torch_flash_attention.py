@@ -263,7 +263,7 @@ def _bf16_qkv(gen, B, Sq, Skv, H, KVH, D):
 
 
 # the wgmma kernel's wide instances (kv tiles of 96 rows up to 192 and 64
-# above, the balanced item order): a head dim of each tail class of the Q
+# above): a head dim of each tail class of the Q
 # and K boxes at each kv tile (144 and 208, 160 and 224, 176 and 240: 16, 32
 # and 48 columns past the 64-column boxes; 192 and 256: none), q and kv
 # tiles cut by Sq and Skv within a batch row (B >= 2), Sq != Skv both ways,
@@ -286,6 +286,23 @@ def _bf16_qkv(gen, B, Sq, Skv, H, KVH, D):
 def test_wgmma_flash_kernel_wide_head_dims_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, causal):
     _check_on_card(*_bf16_qkv(cuda_gen, B, Sq, Skv, H, KVH, D), causal,
                    flash_kernel.FLASH_WGMMA)
+
+
+# the wgmma kernel's head-major item order, which the launcher takes where
+# the K and V that the items read (half of them under the causal mask) do
+# not fit in L2 (every shape above runs the balanced order): kv tiles of
+# 128, 96 and 64 rows, ragged Sq within a batch row, causal and not
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,causal", [
+    (4, 3000, 32, 32, 80, True),
+    (3, 3500, 16, 16, 192, True),
+    (2, 3000, 16, 16, 256, False),
+])
+def test_wgmma_flash_kernel_head_major_order_on_card(cuda_gen, B, S, H, KVH, D, causal):
+    q, k, v = _bf16_qkv(cuda_gen, B, S, S, H, KVH, D)
+    read = 2 * k.numel() * k.element_size() // (2 if causal else 1)
+    assert read > torch.cuda.get_device_properties(0).L2_cache_size
+    _check_on_card(q, k, v, causal, flash_kernel.FLASH_WGMMA)
 
 
 # the mma.sync kernel, which no route takes any more, launched directly

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Probe the wgmma flash-attention kernel on the card: where its time goes.
 
-    python3 tools/flash_probe.py [--shape zamba2|gemma-2b|deepseek-v2-lite]
-                                 [--runs N] [--compare NAME=SOURCE ...]
+    python3 tools/flash_probe.py [--shape zamba2|gemma-2b|deepseek-v2-lite ...]
+                                 [--batch B ...] [--runs N]
+                                 [--compare NAME=SOURCE ...]
 
 Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` with ``nvcc``
 once for each setting of the kernel's ``FLASH_PROBE`` switches (see the
@@ -17,26 +18,30 @@ source) into ``build/flash_probe/``, all builds at once:
   swizzle, zero-filled past D, as V's are;
 - ``loads_wide_tail``: ``loads_only`` with that layout;
 - ``loads_v_one_box``: ``loads_only`` loading only V's first 64-column box;
-- ``other_order``: the other order of work items (at ``block_item`` in
-  the source): the balanced order up to head dim 128, the order of head
-  dims up to 128 above it;
+- ``other_order``: the order of work items (at ``block_item`` in the
+  source) that the launcher does not pick;
 - ``trace``: stamps ``clock64()`` at each step of the consumer loop for
   the first item of block 0.
 
 The ``kernel`` build also runs ``ptxas -v``: one line per kernel instance
-gives its registers a thread, stack frame and spill bytes, and any ptxas
-warning is printed.
+(the wgmma kernel has one per head dim and item order) gives its
+registers a thread, stack frame and spill bytes, and any ptxas warning is
+printed.
 
 Each ``--compare NAME=SOURCE`` builds another version of the source as it
 is (for example an earlier commit's, unpacked with ``git show``) and times
 it as ``NAME``. Every build's ``flash_attention_fwd_wgmma`` is timed with
-``chip_smoke.time_ms`` (median of ``--runs``) at the shapes of
+``chip_smoke.time_ms`` (median of ``--runs``) at the shapes of each
 ``--shape``, beside ``scaled_dot_product_attention`` on the same inputs:
 ``zamba2`` (the default) is Zamba2-2.7B's prefill shape (B 4, S 4096, 32
 heads of 80, causal), with head dims 64 and 128 and non-causal at 80;
 ``gemma-2b`` is B 1, S 4096, 8 heads, 1 kv head of 256, causal;
-``deepseek-v2-lite`` B 1, S 4096, 16 heads of 192, causal. At the two
-wide shapes the ``mma.sync`` kernel of the ``kernel`` build is timed as
+``deepseek-v2-lite`` B 1, S 4096, 16 heads of 192, causal. ``--batch``
+times each shape at each batch size given instead of its own. Each row
+names the order the launcher picks for the ``kernel`` build
+(``kernel_order``) from the bytes of K and V (half of them under the
+causal mask) against L2's size. Above
+head dim 128 the ``mma.sync`` kernel of the ``kernel`` build is timed as
 well. ``kernel``, ``wide_tail``, ``other_order`` and the compared sources
 must match the plain version by ``chip_smoke.flash_compare``
 (``FLASH_TOL``); the others compute something else by design. The trace
@@ -118,9 +123,12 @@ def emit_ptxas(log: str) -> None:
     for line in log.splitlines():
         if "warning" in line:
             emit({"probe": "ptxas_warning", "line": line.strip()})
-        m = re.search(r"Compiling entry function '\w*?flash_fwd_(\w+?)_kernelILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\w*?flash_fwd_(\w+?)_kernelILi(\d+)E"
+                      r"(?:Lb([01])E)?", line)
         if m:
             entry = {"probe": "ptxas", "kernel": m.group(1), "D": int(m.group(2))}
+            if m.group(3):   # the wgmma kernel's item order
+                entry["order"] = "balanced" if m.group(3) == "1" else "head-major"
             continue
         if entry is None:
             continue
@@ -146,7 +154,9 @@ def launcher(lib, symbol="flash_attention_fwd_wgmma"):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--shape", choices=sorted(SHAPES), default="zamba2")
+    ap.add_argument("--shape", choices=sorted(SHAPES), nargs="+", default=["zamba2"])
+    ap.add_argument("--batch", type=int, nargs="+",
+                    help="batch sizes to time each shape at (default: its own)")
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--compare", action="append", default=[], metavar="NAME=SOURCE",
                     help="another flash_attention.cu to build and time as NAME")
@@ -160,8 +170,11 @@ def main(argv=None) -> int:
     from chip_smoke import flash_compare, nvidia_smi, time_ms
     from repro_torch.kernels.flash_attention.ref import flash_ref
 
-    emit({"probe": "device", "nvidia_smi": nvidia_smi(), "shape": args.shape})
-    shapes = SHAPES[args.shape]
+    l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
+    emit({"probe": "device", "nvidia_smi": nvidia_smi(), "shape": args.shape,
+          "batch": args.batch, "l2_bytes": l2_bytes})
+    shapes = [(b, *shape[1:]) for name in args.shape for shape in SHAPES[name]
+              for b in (args.batch or [shape[0]])]
     libs = build(VARIANTS, compare)
     checked = CHECKED | set(compare)
     timed = [n for n in [*VARIANTS, *compare] if n != "trace"]
@@ -180,7 +193,11 @@ def main(argv=None) -> int:
                           for i in range(B)])
         flops = 4.0 * B * H * D * (S * (S + 1) / 2 if causal else S * S)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kv_bytes = 2 * B * KVH * S * D * 2
+        read = kv_bytes // 2 if causal else kv_bytes   # the launcher's rule
         row = {"probe": "time", "shape": [B, S, H, KVH, D, causal], "gflop": flops / 1e9,
+               "kv_bytes": kv_bytes,
+               "kernel_order": "balanced" if read <= l2_bytes else "head-major",
                "sdpa_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal, enable_gqa=True), args.runs)}
         runs = [(n, libs[n], "flash_attention_fwd_wgmma") for n in timed]
