@@ -51,7 +51,27 @@
    prompt must match the prefill logits of the same prompt (f32: 5e-3;
    bf16: a tenth of the largest logit). Prints prefill and decode
    tokens/s and peak memory.
-6. Prints one ``kernels`` line: per kernel its launches on its main path
+6. qwen2-moe-a2.7b at full width (24 layers, d 2048, 60 routed experts
+   top-4 and 4 shared, 14.3 G f32 parameters drawn on the card from the
+   seed, once Zamba2's are freed): ``make_prefill_step`` on 4 requests of
+   4,096 tokens must launch the wgmma flash kernel, the blob pack kernel
+   and the blob unpack kernel 24 times each (the MoE layer's scatter and
+   gather) and no other kernel, leave ``MIN_HEADROOM_GB`` of the card
+   free, and give finite logits; each layer's expert load and the units
+   its capacity dropped are reported. On the first MoE layer's captured
+   input the pack and unpack kernels must equal the index-based
+   ``scatter_to_bins``/``gather_from_bins`` bit for bit, and the layer
+   the same layer through those helpers (``moe_layer_indexed``); flash is
+   held against its plain version on the first attention call's q, k, v.
+   Decode as ``repro_torch.launch.serve`` does it (4 prompts of 16
+   tokens, 32 new tokens), timed; at a capacity factor of E (no unit can
+   drop, and the loads show none did) its logits over the prompt must
+   match prefill's within a tenth of the largest logit. Prints prefill
+   and decode tokens/s, peak memory, the init time, a ``torch.profiler``
+   breakdown of one prefill, the time of one layer's bf16 weight copies,
+   and decode and prefill with the checks that sync the host (on the
+   keys and on the pack's order) and without them, in turn.
+7. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
@@ -65,8 +85,11 @@
    (``flash_attention_wide``), whose path is one call of
    ``flash_attention_op`` at that shape (``path``; its launches are
    counted from 0 over that call alone), with the ``mma.sync`` kernel's
-   time beside it (``mma_sync_ms``).
-7. Ends with ``{"ok": true, "device": {...}}``.
+   time beside it (``mma_sync_ms``). The qwen2-moe prefill adds rows
+   with ``path`` ``qwen2_moe_prefill``: flash at head dim 128 and the
+   pack and unpack kernels at the MoE layer's shape (65,536 units of
+   2,048 bf16 into 60 bins of 1,368), each with its 24 launches.
+8. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -111,6 +134,13 @@ FLASH_TOL = {torch.bfloat16: (8e-3, 1e-2, 5e-3), torch.float32: (2e-5, 1e-5, 1e-
 SSD_TOL = 1e-4                # atol and rtol, f32 outputs
 GAP_TOL_F32 = 5e-3            # prefill vs decode logits, f32 compute
 GAP_TOL_BF16 = 0.1            # ... bf16 compute, times the largest |logit|
+# qwen2-moe-a2.7b serving: 4 requests of 4,096 tokens (57.3 GB of f32
+# parameters, 5.0 GB of bf16 logits); decode as repro_torch.launch.serve
+# runs it, 4 prompts of 16 tokens and 32 new tokens
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PREFILL_BATCH = 4
+MOE_NEW_TOKENS = 32
+MIN_HEADROOM_GB = 4.0         # free device memory the prefill must leave
 
 
 def emit(obj) -> None:
@@ -666,7 +696,8 @@ def model_kernel_phases(seed: int) -> list:
     return wide_rows
 
 
-def profile_prefill(prefill, params, tokens) -> dict:
+def profile_prefill(prefill, params, tokens, phase="zamba2_prefill_profile",
+                    top_n=15) -> dict:
     """One more prefill under ``torch.profiler``: the device time by
     kernel, and the share of the wall time the device was idle."""
     from torch.autograd import DeviceType
@@ -679,8 +710,8 @@ def profile_prefill(prefill, params, tokens) -> dict:
         wall_s = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    return {"phase": "zamba2_prefill_profile", "wall_s": wall_s, "device_busy_s": busy_s,
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    return {"phase": phase, "wall_s": wall_s, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall_s, "kernel_names": len(kernels),
             "top": [{"name": e.key[:90], "calls": e.count,
                      "ms": e.self_device_time_total / 1e3} for e in top]}
@@ -893,6 +924,315 @@ def zamba2(seed: int) -> list:
     return rows
 
 
+def moe_layer_indexed(cfg, p, x):
+    """``moe_apply``'s dense path as the JAX package writes it, with the
+    index-based ``binning.scatter_to_bins``/``gather_from_bins`` where the
+    port calls the pack and unpack ops: the plain version of the layer."""
+    from repro_torch.models import layers as L
+    from repro_torch.shuffle import api, binning, dispatch
+
+    m = cfg.moe
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    T, E = xt.shape[0], m.num_experts
+    sel_w, sel_idx, probs = api._route(xt, p.router, m.top_k, True)
+    U = T * m.top_k
+    cap = dispatch._cap(U / E, m.capacity_factor)
+    unit_tok = torch.arange(T, dtype=torch.int32, device=x.device).repeat_interleave(m.top_k)
+    pack = binning.bin_pack(sel_idx.reshape(-1), E, cap)
+    ebuf = binning.scatter_to_bins(xt[unit_tok], pack, E, cap)
+    eout = api._expert_ffn(p.we_gate, p.we_up, p.we_down, cfg.compute_dtype)(ebuf)
+    y_units = binning.gather_from_bins(eout, pack)
+    y = torch.einsum("tk,tkd->td", sel_w, y_units.reshape(T, m.top_k, d).float())
+    y = y.to(xt.dtype).reshape(B, S, d) + L.mlp_apply(cfg, p.shared, x)
+    return y.to(x.dtype), api._aux_loss(probs, pack.counts, U, E) * m.aux_loss_coef, pack.counts
+
+
+def qwen2_moe(seed: int) -> list:
+    """qwen2-moe-a2.7b prefill and decode at full width; returns the rows
+    of the kernels line for flash attention and the MoE layer's pack and
+    unpack."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _checks
+    from repro_torch.kernels.blob_codec import kernel as codec_kernel
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_pack.ops import blob_pack
+    from repro_torch.kernels.blob_pack.ref import blob_pack_ref
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.blob_unpack.ops import blob_unpack
+    from repro_torch.kernels.blob_unpack.ref import blob_unpack_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_ref, flash_ref_f32p
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_module
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import ServeConfig, make_prefill_step
+    from repro_torch.shuffle import api, binning, dispatch
+
+    # the earlier phases' tensors must be gone: the f32 parameters alone
+    # take 57.3 GB of the card's 80
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before qwen2-moe: {held_gb} GB held")
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    E, k, d = m.num_experts, m.top_k, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(lm.LM(cfg, device="cuda"), gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count(), f"{n_params} parameters")
+    B, S = MOE_PREFILL_BATCH, PREFILL_LEN
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    prefill = make_prefill_step(cfg, ServeConfig())
+    kernels = {kn.symbol: kn for kn in (
+        pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
+        codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
+    flash = flash_kernel.FLASH_WGMMA
+    per_layer = {flash.symbol: cfg.num_layers, pack_kernel.PACK.symbol: cfg.num_layers,
+                 unpack_kernel.UNPACK.symbol: cfg.num_layers}
+
+    # every MoE call's token count and expert load; the first call's
+    # parameters and input, and the first flash call's q, k, v
+    captured, loads = {}, []
+    originals = (flash_ops.flash_attention_cuda, moe_module.moe_apply)
+
+    def flash_capturing(*args, **kwargs):
+        captured.setdefault("flash", args)
+        return originals[0](*args, **kwargs)
+
+    def moe_recording(cfg_, p, x, **kwargs):
+        captured.setdefault("moe", (p, x))
+        out = originals[1](cfg_, p, x, **kwargs)
+        loads.append((cfg_.moe.capacity_factor, x.shape[0] * x.shape[1],
+                      out[2]["expert_load"]))
+        return out
+
+    def drops(records):
+        """Units over capacity in each recorded MoE call, from its loads."""
+        return [int(torch.clamp(load - dispatch._cap(T * k / E, cf), min=0).sum())
+                for cf, T, load in records]
+
+    flash_ops.flash_attention_cuda, moe_module.moe_apply = flash_capturing, moe_recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kn in kernels.values():
+            kn.launches = 0
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {name: kn.launches for name, kn in kernels.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prefill_loads = loads[:]
+    finally:
+        flash_ops.flash_attention_cuda, moe_module.moe_apply = originals
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    check(launches == {s: per_layer.get(s, 0) for s in kernels},
+          f"one prefill: {cfg.num_layers} launches each of {sorted(per_layer)} and no "
+          f"other kernel: {launches}")
+    check(total_gb - peak_gb >= MIN_HEADROOM_GB,
+          f"prefill peak {peak_gb} GB leaves {MIN_HEADROOM_GB} GB of {total_gb}")
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size), f"logits shape {tuple(logits.shape)}")
+    check(all(bool(torch.isfinite(logits[i]).all()) for i in range(B)), "prefill logits finite")
+    logit_max = max(float(logits[i].abs().max()) for i in range(B))
+    del logits
+    cap = dispatch._cap(B * S * k / E, m.capacity_factor)
+    layer_load = [ld.tolist() for _, _, ld in prefill_loads]
+    layer_drops = drops(prefill_loads)
+    check(len(layer_load) == cfg.num_layers and all(sum(ld) == B * S * k for ld in layer_load),
+          "every layer routes every unit")
+    prefill_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        del out
+    prefill_s = min(prefill_s)
+    profile = profile_prefill(prefill, params, tokens, "qwen2_moe_prefill_profile", 25)
+
+    # the captured MoE layer: the pack and unpack ops (the kernels) against
+    # the index-based binning helpers, and the layer against its plain
+    # version, bit for bit
+    p, z = captured["moe"]
+    xt = z.reshape(-1, d)
+    T = xt.shape[0]
+    U = T * k
+    _, sel_idx, _ = api._route(xt, p.router, k, True)
+    keys = sel_idx.reshape(-1)
+    unit_tok = torch.arange(T, dtype=torch.int32, device="cuda").repeat_interleave(k)
+    order, starts, counts = binning.sorted_order(keys, E)
+    pack = binning.pack_sorted(keys, order, starts, counts, cap)
+    tok_order = unit_tok[order]
+    ebuf = blob_pack(xt, tok_order, starts, counts, capacity=cap)
+    ebuf_want = binning.scatter_to_bins(xt[unit_tok], pack, E, cap)
+    check(same_bits(ebuf, ebuf_want), "MoE scatter: pack kernel == scatter_to_bins")
+    pack_err = max_abs_diff(ebuf, ebuf_want)
+    del ebuf_want
+    eout = api._expert_ffn(p.we_gate, p.we_up, p.we_down, cfg.compute_dtype)(ebuf)
+    y_units = blob_unpack(eout, pack.slot, pack.valid)
+    y_units_want = binning.gather_from_bins(eout, pack)
+    check(same_bits(y_units, y_units_want), "MoE gather: unpack kernel == gather_from_bins")
+    unpack_err = max_abs_diff(y_units, y_units_want)
+    del y_units_want
+    got = moe_module.moe_apply(cfg, p, z, shuffle=ServeConfig().shuffle)
+    want = moe_layer_indexed(cfg, p, z)
+    check(same_bits(got[0], want[0]) and same_bits(got[1], want[1])
+          and same_bits(got[2]["expert_load"], want[2]),
+          "MoE layer through the kernels == the layer through the binning helpers")
+    del got, want
+
+    # flash on the first attention call's q, k, v
+    q, kk, v = captured["flash"]
+    flash_out = flash_kernel.flash_attention_cuda(q, kk, v, causal=True)
+
+    def flash_plain():  # one batch row at a time bounds the S x S scores
+        return torch.cat([flash_ref(q[i:i + 1], kk[i:i + 1], v[i:i + 1], causal=True)
+                          for i in range(q.shape[0])])
+
+    flash_cmp = flash_compare(flash_out, flash_plain())
+    check(flash_cmp["ok"], f"flash at the captured shape: {flash_cmp}")
+    flash_gap = f32p_gap(flash_out, torch.cat([
+        flash_ref_f32p(q[i:i + 1], kk[i:i + 1], v[i:i + 1], causal=True)
+        for i in range(q.shape[0])]))
+
+    # decode as repro_torch.launch.serve does it, timed at the published
+    # capacity, where a decode step of 16 units never drops. Against
+    # prefill of the same prompts at a capacity factor of E, where no unit
+    # can drop in either (the published factor drops others in a prefill
+    # of 256 units than in a decode step)
+    prompts = tokens[:, :PROMPT_LEN].contiguous()
+    moe_module.moe_apply = moe_recording
+    try:
+        loads.clear()
+        dec = generate(cfg, params, prompts, MOE_NEW_TOKENS)
+        decode_drops = sum(drops(loads))
+        loads.clear()
+        cfg_nd = dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=float(E)))
+        want = make_prefill_step(cfg_nd, ServeConfig())(params, {"tokens": prompts}).float()
+        dec_nd = generate(cfg_nd, params, prompts, 1)
+        nd_drops = sum(drops(loads))
+    finally:
+        moe_module.moe_apply = originals[1]
+    check(bool(torch.isfinite(dec["logits"]).all()), "decode logits finite")
+    check(decode_drops == 0, f"decode steps drop no unit ({decode_drops})")
+    check(nd_drops == 0, f"no unit dropped at capacity factor {E} ({nd_drops})")
+    gap = float((dec_nd["logits"].float() - want).abs().max())
+    want_max = float(want.abs().max())
+    check(gap <= GAP_TOL_BF16 * want_max,
+          f"bf16 prefill vs decode logits: gap {gap}, largest logit {want_max}")
+    steps, decode_s = dec["logits"].shape[1], dec["seconds"]
+    del dec, dec_nd, want
+
+    # the host syncs of the checks on the keys and on the pack's order (two
+    # per MoE layer): the same decode and prefill with them and without,
+    # in turn (the checks stay in the port; this only measures them)
+    def decode_ms_per_step():
+        return generate(cfg, params, prompts[:, :4], 12)["seconds"] / 15 * 1e3
+
+    def prefill_seconds():
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def unchecked(fn):
+        binning.check_keys = pack_kernel.check_pack = lambda *a, **kw: None
+        try:
+            return fn()
+        finally:
+            binning.check_keys, pack_kernel.check_pack = _checks.check_keys, _checks.check_pack
+
+    sync_cost = {"decode_ms_per_step": [], "decode_ms_per_step_unchecked": [],
+                 "prefill_s": [], "prefill_s_unchecked": []}
+    for _ in range(2):
+        sync_cost["decode_ms_per_step"].append(decode_ms_per_step())
+        sync_cost["decode_ms_per_step_unchecked"].append(unchecked(decode_ms_per_step))
+        sync_cost["prefill_s"].append(prefill_seconds())
+        sync_cost["prefill_s_unchecked"].append(unchecked(prefill_seconds))
+    # the per-call bf16 copies of one MoE layer's f32 expert and shared weights
+    copies = [p.we_gate, p.we_up, p.we_down, p.shared.w_gate, p.shared.w_up, p.shared.w_down]
+    copy_ms = time_ms(lambda: [w.to(cfg.compute_dtype) for w in copies], 5)
+    emit({"phase": "qwen2_moe_serve", "arch": MOE_ARCH, "params": n_params,
+          "param_init_s": init_s, "prefill_batch": B, "prefill_len": S,
+          "launches": launches, "prefill_first_s": first_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": B * S / prefill_s, "prefill_peak_memory_gb": peak_gb,
+          "device_memory_gb": total_gb, "prefill_logit_max_abs": logit_max,
+          "capacity": cap, "units_per_layer": B * S * k, "expert_load_per_layer": layer_load,
+          "dropped_per_layer": layer_drops, "moe_scatter_gather_bitwise": True,
+          "moe_layer_bitwise_vs_plain": True, "flash_captured": flash_cmp,
+          "flash_captured_f32p_gap": flash_gap, "decode_batch": B, "prompt_len": PROMPT_LEN,
+          "new_tokens": MOE_NEW_TOKENS, "decode_steps": steps, "decode_s": decode_s,
+          "decode_tokens_per_s": B * steps / decode_s,
+          "decode_ms_per_step": decode_s / steps * 1e3, "decode_dropped": decode_drops,
+          "prefill_decode_gap_bf16": gap, "prefill_logit_max_abs_bf16": want_max,
+          "gap_tol_bf16": GAP_TOL_BF16 * want_max, "gap_capacity_factor": float(E),
+          "check_sync_cost": sync_cost, "expert_weight_copy_ms_per_layer": copy_ms,
+          "ok": True})
+    emit(profile)
+
+    # timing at the prefill's shapes, launching into the outputs above
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+    row_bytes = d * xt.element_size()
+    live = int(torch.clamp(counts, max=cap).sum())
+    n_valid = int(pack.valid.sum())
+    pos = starts[:, None] + torch.arange(cap, device="cuda", dtype=torch.int32)
+    tok = tok_order[torch.clamp(pos, 0, U - 1)].reshape(-1)
+    flat_eout = eout.reshape(-1, d)
+    rows = []
+    for name, kern, run, plain, library, flops, nbytes, err, src, replaces, lib in (
+            ("flash_attention_moe", flash,
+             lambda: flash_kernel.launch(flash_out, q, kk, v, causal=True), flash_plain,
+             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=True),
+             flash_flops(q.shape[0], q.shape[1], kk.shape[1], q.shape[2], q.shape[3]),
+             2 * (2 * q.numel() + kk.numel() + v.numel()), flash_cmp["max_abs_err"],
+             "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:68",
+             "torch.nn.functional.scaled_dot_product_attention"),
+            ("moe_pack", pack_kernel.PACK,
+             lambda: pack_kernel.launch(ebuf, xt, tok_order, starts, counts),
+             lambda: blob_pack_ref(xt, tok_order, starts, counts, capacity=cap),
+             lambda: torch.index_select(xt, 0, tok), 0,
+             live * row_bytes + ebuf.numel() * ebuf.element_size() + 4 * (U + 2 * E),
+             pack_err, "blob_kernels.cu", "src/repro/kernels/blob_pack/kernel.py:95",
+             "torch.index_select"),
+            ("moe_unpack", unpack_kernel.UNPACK,
+             lambda: unpack_kernel.launch(y_units, eout, pack.slot, pack.valid),
+             lambda: blob_unpack_ref(eout, pack.slot, pack.valid),
+             lambda: torch.index_select(flat_eout, 0, pack.slot), 0,
+             n_valid * row_bytes + U * row_bytes + 5 * U, unpack_err, "blob_kernels.cu",
+             "src/repro/kernels/blob_unpack/kernel.py:79", "torch.index_select")):
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms = time_ms(run, TIMED_RUNS)
+        rows.append({
+            "name": name, "route": "cuda", "symbol": kern.symbol, "config": MOE_ARCH,
+            "path": "qwen2_moe_prefill", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[kern.symbol], "max_abs_err": err,
+            "ms": ms, "plain_ms": time_ms(plain, 5, warmup=1), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": time_ms(library, TIMED_RUNS),
+            "library_call": lib, "bytes": nbytes, "ops": flops,
+            "tflop_s": flops / ms / 1e9, "gb_s": nbytes / ms / 1e6})
+    # the timed launches rewrote the outputs; they must still be right
+    torch.cuda.synchronize()
+    check(flash_compare(flash_out, flash_plain())["ok"],
+          "flash output unchanged by the timed launches")
+    check(same_bits(ebuf, binning.scatter_to_bins(xt[unit_tok], pack, E, cap))
+          and same_bits(y_units, binning.gather_from_bins(eout, pack)),
+          "pack and unpack outputs unchanged by the timed launches")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -922,6 +1262,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()     # the deployment's tensors went with it
     wide_rows = model_kernel_phases(args.seed)
     rows += zamba2(args.seed) + wide_rows
+    rows += qwen2_moe(args.seed)     # Zamba2's tensors went with its phase
     emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-The port supports the Mamba2 (``ssm``) and Zamba2 (``hybrid``) kinds so
-far; the other architectures of ``repro.configs`` come with the slices
-that port their layers.
+The port supports the Mamba2 (``ssm``) and Zamba2 (``hybrid``) kinds and
+the ``decoder`` kind with the single-device MoE layer (qwen2-moe) so far;
+the other architectures of ``repro.configs`` come with the slices that
+port their layers.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from repro_torch.models.common import ModelConfig
 
 ARCH_MODULES: Dict[str, str] = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 

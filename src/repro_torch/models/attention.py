@@ -53,8 +53,8 @@ def attention_op(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 class Attention(ParamModule):
     """q/k/v/o projections: wq (d, H, hd), wk/wv (d, KVH, hd),
-    wo (H, hd, d). The q/k/v biases of the decoder configs come with the
-    decoder slice; ``lm`` refuses configs that ask for them."""
+    wo (H, hd, d); with ``cfg.qkv_bias`` the biases bq (H, hd) and bk/bv
+    (KVH, hd), initialised to zero."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -67,6 +67,13 @@ class Attention(ParamModule):
         self.declare("wv", ArraySpec((d, KVH, hd), pd, ("kv_embed", "kv_heads", None)),
                      device)
         self.declare("wo", ArraySpec((H, hd, d), pd, ("heads", None, "embed")), device)
+        if cfg.qkv_bias:
+            self.declare("bq", ArraySpec((H, hd), pd, ("heads", None), init="zeros"),
+                         device)
+            self.declare("bk", ArraySpec((KVH, hd), pd, ("kv_heads", None),
+                                         init="zeros"), device)
+            self.declare("bv", ArraySpec((KVH, hd), pd, ("kv_heads", None),
+                                         init="zeros"), device)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -83,6 +90,10 @@ def attention_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     q = _project(x, p.wq.to(cd))
     k = _project(x, p.wk.to(cd))
     v = _project(x, p.wv.to(cd))
+    if cfg.qkv_bias:
+        q = q + p.bq.to(cd)
+        k = k + p.bk.to(cd)
+        v = v + p.bv.to(cd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

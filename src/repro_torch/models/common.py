@@ -117,6 +117,20 @@ def zeros_tree(defs, device="cuda"):
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int            # routed experts
+    top_k: int
+    d_expert: int               # per-expert FFN hidden size
+    num_shared: int = 0         # always-on shared experts (same d_expert)
+    first_dense_layers: int = 0  # leading layers that use a dense FFN instead
+    dense_d_ff: int = 0          # hidden size of those dense layers
+    router_noise: float = 0.0
+    aux_loss_coef: float = 0.001
+    # token capacity factor of the dense (capacity-based) dispatch
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 128
     d_conv: int = 4
@@ -159,8 +173,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False      # gemma: scale embeddings by sqrt(d)
     causal: bool = True
-    # the MoE, MLA and multimodal sub-configs come with their slices
-    moe: Optional[Any] = None
+    # the MLA and multimodal sub-configs come with their slices
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     mla: Optional[Any] = None
     hybrid: Optional[HybridConfig] = None

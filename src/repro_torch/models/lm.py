@@ -1,25 +1,28 @@
-"""Model assembly for the ``ssm`` (Mamba2) and ``hybrid`` (Zamba2) kinds,
-the port of ``repro.models.lm``.
+"""Model assembly for the ``decoder``, ``ssm`` (Mamba2) and ``hybrid``
+(Zamba2) kinds, the port of ``repro.models.lm``.
 
 Where the JAX package stacks every layer's parameters on a leading
 ``layers`` axis and scans over it, the port holds one module per layer in
-an ``nn.ModuleList`` and loops. The hybrid model runs groups of
-``shared_block_every`` Mamba2 layers, each followed by the shared
-attention block on ``concat(x, x0) @ shared_in[g]``, with the residual
-``x + y - z``.
+an ``nn.ModuleList`` and loops. A decoder block's FFN is the MoE layer
+when the config has one, else the SwiGLU MLP. The hybrid model runs
+groups of ``shared_block_every`` Mamba2 layers, each followed by the
+shared attention block on ``concat(x, x0) @ shared_in[g]``, with the
+residual ``x + y - z``.
 
 Public surface:
   * ``LM(cfg, device="cuda")``                 - the parameters
-  * ``forward(cfg, params, batch)``            - (logits, aux) for prefill
+  * ``forward(cfg, params, batch, shuffle=DENSE)``  - (logits, aux) for prefill
   * ``cache_defs(cfg, batch, max_seq)``        - decode cache specs
   * ``init_cache(cfg, batch, max_seq, device="cuda")`` - a zero cache
-  * ``decode_step(cfg, params, cache, batch)`` - one-token serve step
+  * ``decode_step(cfg, params, cache, batch, shuffle=DENSE)`` - one-token serve step
 
-Other kinds (decoder, encoder) and options of theirs (MLA, MoE,
-multimodal, GeGLU/GELU MLPs, q/k/v biases, embedding scale) raise
-``ValueError`` naming them; they come with later slices of the port. So
-does ``ssm.intra_bf16``: the JAX package then holds the intra-chunk
-tensors in bf16, and the port's SSD chunk computes in f32 only.
+``shuffle`` selects the MoE dispatch; on one device every mode takes the
+dense dispatch. The ``encoder`` kind and options the port has no layers
+for yet (MLA, MoE models with leading dense layers, multimodal
+frontends, GeGLU/GELU MLPs, embedding scale) raise ``ValueError``
+naming them; they come with later slices of the port. So does
+``ssm.intra_bf16``: the JAX package then holds the intra-chunk tensors
+in bf16, and the port's SSD chunk computes in f32 only.
 """
 
 from __future__ import annotations
@@ -29,11 +32,14 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ArraySpec, ModelConfig, ParamModule,
                                        zeros_tree)
+from repro_torch.shuffle.api import ShuffleConfig
 
-KINDS = ("ssm", "hybrid")
+KINDS = ("decoder", "ssm", "hybrid")
+DENSE = ShuffleConfig(mode="dense")
 
 
 def _check_kind(cfg: ModelConfig) -> None:
@@ -41,8 +47,11 @@ def _check_kind(cfg: ModelConfig) -> None:
         raise ValueError(f"the port has no {cfg.kind!r} kind yet "
                          f"({cfg.name}); it runs {KINDS}")
     unsupported = [name for name, on in (
-        ("mlp=" + cfg.mlp, cfg.mlp != "swiglu"), ("qkv_bias", cfg.qkv_bias),
-        ("embed_scale", cfg.embed_scale), ("moe", cfg.moe is not None),
+        ("mlp=" + cfg.mlp, cfg.mlp != "swiglu"),
+        ("embed_scale", cfg.embed_scale),
+        ("moe outside the decoder kind", cfg.moe is not None and cfg.kind != "decoder"),
+        ("moe.first_dense_layers",
+         cfg.moe is not None and cfg.moe.first_dense_layers > 0),
         ("ssm.intra_bf16", cfg.ssm is not None and cfg.ssm.intra_bf16),
         ("mla", cfg.mla is not None), ("multimodal", cfg.multimodal is not None)) if on]
     if unsupported:
@@ -59,26 +68,31 @@ class SSMBlock(ParamModule):
 
 
 class Block(ParamModule):
-    """Pre-norm transformer block: attention, then the MLP."""
+    """Pre-norm transformer block: attention, then the FFN, the MoE layer
+    (``moe=True``) or the SwiGLU MLP."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, *, moe: bool = False):
         super().__init__()
         self.declare("ln1", L.norm_spec(cfg.d_model), device)
         self.attn = A.Attention(cfg, device)
         self.declare("ln2", L.norm_spec(cfg.d_model), device)
-        self.ffn = L.MLP(cfg, cfg.d_ff, device)
+        self.ffn = MOE.MoE(cfg, device) if moe else L.MLP(cfg, cfg.d_ff, device)
 
 
 class LM(ParamModule):
-    """The parameters of an ``ssm`` or ``hybrid`` model, on ``device``
-    (uninitialised: draw them with ``common.init_params``)."""
+    """The parameters of a ``decoder``, ``ssm`` or ``hybrid`` model, on
+    ``device`` (uninitialised: draw them with ``common.init_params``)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _check_kind(cfg)
         self.embed = L.Embedding(cfg, device)
-        self.blocks = nn.ModuleList(SSMBlock(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        if cfg.kind == "decoder":
+            self.blocks = nn.ModuleList(Block(cfg, device, moe=cfg.moe is not None)
+                                        for _ in range(cfg.num_layers))
+        else:
+            self.blocks = nn.ModuleList(SSMBlock(cfg, device)
+                                        for _ in range(cfg.num_layers))
         if cfg.kind == "hybrid":
             h = cfg.hybrid
             if cfg.num_layers % h.shared_block_every:
@@ -97,13 +111,24 @@ class LM(ParamModule):
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn_apply(cfg: ModelConfig, p: Block, z: torch.Tensor, shuffle: ShuffleConfig):
+    """The block's FFN on the normed residual z: (y, aux), the aux loss
+    being the MoE layer's, or 0 for the MLP."""
+    if isinstance(p.ffn, MOE.MoE):
+        y, aux, _ = MOE.moe_apply(cfg, p.ffn, z, shuffle=shuffle)
+        return y, aux
+    return L.mlp_apply(cfg, p.ffn, z), torch.zeros((), dtype=torch.float32,
+                                                   device=z.device)
+
+
 def _block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, *, shuffle: ShuffleConfig = DENSE):
+    """Pre-norm transformer block. Returns (x, aux)."""
     h = A.attention_apply(cfg, p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps),
                           positions=positions)
     x = x + h
-    z = L.rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + L.mlp_apply(cfg, p.ffn, z)
+    y, aux = _ffn_apply(cfg, p, L.rms_norm(x, p.ln2, cfg.norm_eps), shuffle)
+    return x + y, aux
 
 
 def _ssm_block_apply(cfg: ModelConfig, p: SSMBlock,
@@ -117,28 +142,38 @@ def _shared_input(cfg: ModelConfig, params: LM, g: int, x, x0):
     return inp.to(cd) @ params.shared_in[g].to(cd)
 
 
-def forward(cfg: ModelConfig, params: LM, batch: dict):
+def forward(cfg: ModelConfig, params: LM, batch: dict, *,
+            shuffle: ShuffleConfig = DENSE):
     """Full-sequence forward. batch {"tokens": (B, S)}. Returns
-    (logits (B, S, V), aux_loss), the aux loss being 0 for these kinds."""
+    (logits (B, S, V), aux_loss): the sum of the MoE layers' aux losses,
+    0 for the other kinds."""
     _check_kind(cfg)
     x = L.embed_apply(cfg, params.embed, batch["tokens"])
     S = x.shape[1]
-    if cfg.kind == "ssm":
+    positions = torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.kind == "decoder":
+        auxes = []
+        for blk in params.blocks:
+            x, a = _block_apply(cfg, blk, x, positions, shuffle=shuffle)
+            auxes.append(a)
+        aux = torch.stack(auxes).sum()
+    elif cfg.kind == "ssm":
         for blk in params.blocks:
             x = _ssm_block_apply(cfg, blk, x)
     else:
         k = cfg.hybrid.shared_block_every
-        positions = torch.arange(S, device=x.device)[None, :]
         x0 = x  # the initial embedding, fed to every shared-block call
         for g in range(cfg.num_layers // k):
             for blk in params.blocks[g * k:(g + 1) * k]:
                 x = _ssm_block_apply(cfg, blk, x)
             z = _shared_input(cfg, params, g, x, x0)
-            y = _block_apply(cfg, params.shared_block, z, positions)
+            y, _ = _block_apply(cfg, params.shared_block, z, positions,
+                                shuffle=shuffle)
             x = x + y - z
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = L.unembed_apply(cfg, params.embed, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +183,9 @@ def forward(cfg: ModelConfig, params: LM, batch: dict):
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """Decode-cache specs, stacked per layer as in the JAX package."""
     _check_kind(cfg)
+    if cfg.kind == "decoder":
+        return {"blocks": A.attention_cache_defs(cfg, batch, max_seq,
+                                                 stacked=cfg.num_layers)}
     out = {"blocks": SSM.mamba2_cache_defs(cfg, batch, stacked=cfg.num_layers)}
     if cfg.kind == "hybrid":
         n_inv = cfg.num_layers // cfg.hybrid.shared_block_every
@@ -159,12 +197,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
     return zeros_tree(cache_defs(cfg, batch, max_seq), device)
 
 
-def _block_decode(cfg: ModelConfig, p: Block, x, cache: dict, pos: int):
+def _block_decode(cfg: ModelConfig, p: Block, x, cache: dict, pos: int, *,
+                  shuffle: ShuffleConfig = DENSE):
     h, cache = A.attention_decode(cfg, p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps),
                                   cache, pos)
     x = x + h
-    z = L.rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + L.mlp_apply(cfg, p.ffn, z), cache
+    y, _ = _ffn_apply(cfg, p, L.rms_norm(x, p.ln2, cfg.norm_eps), shuffle)
+    return x + y, cache
 
 
 def _ssm_block_decode(cfg: ModelConfig, p: SSMBlock, x, cache: dict, layer: int,
@@ -177,7 +216,8 @@ def _ssm_block_decode(cfg: ModelConfig, p: SSMBlock, x, cache: dict, layer: int,
     return x + h
 
 
-def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict):
+def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict, *,
+                shuffle: ShuffleConfig = DENSE):
     """One-token decode. batch {"tokens": (B, 1), "pos": int}.
 
     Writes the new state of every layer into ``cache`` in place and
@@ -186,7 +226,11 @@ def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict):
     _check_kind(cfg)
     pos = int(batch["pos"])
     x = L.embed_apply(cfg, params.embed, batch["tokens"])
-    if cfg.kind == "ssm":
+    if cfg.kind == "decoder":
+        for layer, blk in enumerate(params.blocks):
+            c = {name: t[layer] for name, t in cache["blocks"].items()}
+            x, _ = _block_decode(cfg, blk, x, c, pos, shuffle=shuffle)
+    elif cfg.kind == "ssm":
         for layer, blk in enumerate(params.blocks):
             x = _ssm_block_decode(cfg, blk, x, cache, layer, pos)
     else:
@@ -197,7 +241,8 @@ def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict):
                 x = _ssm_block_decode(cfg, params.blocks[layer], x, cache, layer, pos)
             z = _shared_input(cfg, params, g, x, x0)
             attn_cache = {name: t[g] for name, t in cache["shared"].items()}
-            y, _ = _block_decode(cfg, params.shared_block, z, attn_cache, pos)
+            y, _ = _block_decode(cfg, params.shared_block, z, attn_cache, pos,
+                                 shuffle=shuffle)
             x = x + y - z
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return L.unembed_apply(cfg, params.embed, x), cache

@@ -1,0 +1,62 @@
+"""MoE FFN layer, the port of ``repro.models.moe``: shared experts
+(always on, local, never shuffled) plus routed experts dispatched through
+``repro_torch.shuffle.api``."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.common import ArraySpec, ModelConfig, ParamModule
+from repro_torch.shuffle.api import ShuffleConfig, dense_moe_ffn, ep_moe_ffn
+
+
+class MoE(ParamModule):
+    """``router`` (d, E) in f32; ``we_gate``/``we_up`` (E, d, d_e) and
+    ``we_down`` (E, d_e, d); ``shared``, the shared experts fused into one
+    SwiGLU of ``num_shared * d_e``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        m = cfg.moe
+        d, de, E, pd = cfg.d_model, m.d_expert, m.num_experts, cfg.param_dtype
+        self.declare("router", ArraySpec((d, E), torch.float32, ("embed", None),
+                                         init="small"), device)
+        self.declare("we_gate", ArraySpec((E, d, de), pd,
+                                          ("experts", "embed", "expert_mlp")), device)
+        self.declare("we_up", ArraySpec((E, d, de), pd,
+                                        ("experts", "embed", "expert_mlp")), device)
+        self.declare("we_down", ArraySpec((E, de, d), pd,
+                                          ("experts", "expert_mlp", "embed")), device)
+        if m.num_shared:
+            # the JAX package's shared w_gate/w_up/w_down, with the SwiGLU
+            # MLP's fan-in (d, then num_shared * d_e)
+            self.shared = L.MLP(cfg, m.num_shared * de, device)
+
+
+def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
+              shuffle: ShuffleConfig, mesh=None):
+    """x: (B, S, d). Returns (y, aux_loss, diagnostics dict)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    if shuffle.mode == "dense" or mesh is None:
+        y, aux, load = dense_moe_ffn(
+            xt, p.router, p.we_gate, p.we_up, p.we_down, top_k=m.top_k,
+            capacity_factor=m.capacity_factor, norm_topk=shuffle.norm_topk,
+            compute_dtype=cfg.compute_dtype)
+        # the JAX package reports no drops on this path, whatever the
+        # capacity dropped; the loads and the capacity say how many
+        diag = {"expert_load": load,
+                "dropped": torch.zeros((), dtype=torch.int32, device=x.device),
+                "dcn_bytes": torch.zeros((), dtype=torch.float32, device=x.device)}
+    else:
+        y, aux, dg = ep_moe_ffn(
+            xt, p.router, p.we_gate, p.we_up, p.we_down, top_k=m.top_k,
+            cfg=shuffle, mesh=mesh, compute_dtype=cfg.compute_dtype)
+        diag = {"expert_load": dg.expert_load, "dropped": dg.dropped,
+                "dcn_bytes": dg.dcn_bytes}
+    y = y.reshape(B, S, d)
+    if m.num_shared:
+        y = y + L.mlp_apply(cfg, p.shared, x)
+    return y.to(x.dtype), aux * m.aux_loss_coef, diag

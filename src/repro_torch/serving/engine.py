@@ -2,11 +2,11 @@
 full-sequence forward, logits only) and one-token decode with the
 KV/state cache. Both run under ``torch.inference_mode``.
 
-``ServeConfig`` keeps the JAX package's ``shuffle`` field, which selects
-the MoE dispatch. The ssm and hybrid kinds have no MoE layer, so neither
-package's steps read it for them, and it has no effect until the MoE
-slice of the port. The JAX package's ``temperature`` is read by nothing
-there and is left out; sampling is greedy."""
+``ServeConfig.shuffle`` selects the MoE dispatch, as in the JAX
+package: both steps pass it to the model's MoE layers. On one device
+every mode takes the dense dispatch; the ssm and hybrid kinds have no
+MoE layer. The JAX package's ``temperature`` is read by nothing there
+and is left out; sampling is greedy."""
 
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ def make_prefill_step(cfg: ModelConfig, scfg: ServeConfig):
     """prefill(params, batch{tokens}) -> logits (B, S, V)."""
     def prefill(params, batch):
         with torch.inference_mode():
-            logits, _ = lm.forward(cfg, params, batch)
+            logits, _ = lm.forward(cfg, params, batch, shuffle=scfg.shuffle)
         return logits
     return prefill
 
@@ -42,7 +42,8 @@ def make_decode_step(cfg: ModelConfig, scfg: ServeConfig):
     logits). The cache is updated in place and returned."""
     def serve_step(params, cache, batch):
         with torch.inference_mode():
-            logits, cache = lm.decode_step(cfg, params, cache, batch)
+            logits, cache = lm.decode_step(cfg, params, cache, batch,
+                                           shuffle=scfg.shuffle)
             nxt = greedy_sample(logits)
         return cache, nxt, logits
     return serve_step

@@ -38,8 +38,14 @@ def sorted_order(keys: torch.Tensor, num_bins: int
 def bin_pack(keys: torch.Tensor, num_bins: int, capacity: int) -> Packing:
     """Assign each unit a slot = key*capacity + rank-within-key, ranks in
     stable sorted order (records of one destination stay contiguous)."""
+    return pack_sorted(keys, *sorted_order(keys, num_bins), capacity)
+
+
+def pack_sorted(keys: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
+                counts: torch.Tensor, capacity: int) -> Packing:
+    """``bin_pack`` from the keys' ``sorted_order`` (order, starts, counts),
+    for a caller that also hands that description to the pack kernel."""
     U = keys.shape[0]
-    order, starts, counts = sorted_order(keys, num_bins)
     sorted_keys = keys[order]
     rank_sorted = (torch.arange(U, dtype=torch.int32, device=keys.device)
                    - starts[sorted_keys])

@@ -79,7 +79,7 @@ def _port_gap(cfg, model, tok):
     return gap, got
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-130m", "qwen2-moe-a2.7b"])
 def test_prefill_decode_gap_within_twice_jax(arch):
     jcfg, cfg, jparams, model = _setup(arch)
     tok = _prompts(cfg.vocab_size, 4, 16)
@@ -103,7 +103,7 @@ def test_prefill_matches_jax_in_f32():
                        torch.from_numpy(np.array(jengine.greedy_sample(jnp.asarray(want)))))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-130m", "qwen2-moe-a2.7b"])
 def test_serve_cli_runs_on_cpu(arch):
     out = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "5", "--tokens", "6"])
@@ -136,10 +136,10 @@ def test_decode_writes_the_cache_in_place():
 
 
 def test_shuffle_config_has_the_jax_fields():
-    """ShuffleConfig and ServeConfig.shuffle are parity fields: the ssm
-    and hybrid kinds have no MoE layer, so no step of the port reads them
-    until the MoE slice. ServeConfig leaves out the JAX package's
-    temperature, which nothing reads there either."""
+    """ShuffleConfig has the JAX package's fields and defaults, and
+    ServeConfig.shuffle its default, which both steps pass to the MoE
+    layers. ServeConfig leaves out the JAX package's temperature, which
+    nothing reads there either."""
     from repro.shuffle.api import ShuffleConfig as JaxShuffleConfig
     from repro_torch.shuffle.api import ShuffleConfig
     jf = {f.name: f.default for f in dataclasses.fields(JaxShuffleConfig)}

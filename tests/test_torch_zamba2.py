@@ -31,6 +31,7 @@ import numpy as np
 from repro.configs import get_config as jax_get_config
 from repro.models import lm as jlm
 from repro.models import ssm as jssm
+from repro.models.common import MLAConfig, MultimodalConfig
 from repro.models.common import init_params as jax_init_params
 from repro.shuffle.api import ShuffleConfig as JaxShuffleConfig
 from repro_torch.configs import get_config
@@ -126,8 +127,8 @@ def test_shared_block_matches_jax(dtype):
     want, _ = jlm._block_apply(jcfg, jparams["shared_block"], jnp.asarray(x, jcfg.compute_dtype),
                                jnp.asarray(pos), moe=False, mesh=None,
                                shuffle=JaxShuffleConfig(mode="dense"))
-    got = lm._block_apply(cfg, model.shared_block, to_torch(x, "cpu").to(cfg.compute_dtype),
-                          torch.from_numpy(pos))
+    got, _ = lm._block_apply(cfg, model.shared_block,
+                             to_torch(x, "cpu").to(cfg.compute_dtype), torch.from_numpy(pos))
     _close(got, want, TOL[dtype])
 
 
@@ -181,8 +182,8 @@ def test_cache_defs_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kind", "decoder"), ("kind", "encoder"), ("mlp", "geglu"), ("qkv_bias", True),
-    ("embed_scale", True)])
+    ("mla", MLAConfig()), ("kind", "encoder"), ("mlp", "geglu"),
+    ("multimodal", MultimodalConfig()), ("embed_scale", True)])
 def test_what_the_port_does_not_run_raises_naming_it(field, value):
     cfg = dataclasses.replace(get_config("zamba2-2.7b", smoke=True), **{field: value})
     for call in (lambda: lm.LM(cfg), lambda: lm.cache_defs(cfg, 1, 4),
