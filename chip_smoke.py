@@ -51,26 +51,33 @@
    prompt must match the prefill logits of the same prompt (f32: 5e-3;
    bf16: a tenth of the largest logit). Prints prefill and decode
    tokens/s and peak memory.
-6. qwen2-moe-a2.7b at full width (24 layers, d 2048, 60 routed experts
-   top-4 and 4 shared, 14.3 G f32 parameters drawn on the card from the
-   seed, once Zamba2's are freed): ``make_prefill_step`` on 4 requests of
-   4,096 tokens must launch the wgmma flash kernel, the blob pack kernel
-   and the blob unpack kernel 24 times each (the MoE layer's scatter and
-   gather) and no other kernel, leave ``MIN_HEADROOM_GB`` of the card
-   free, and give finite logits; each layer's expert load and the units
-   its capacity dropped are reported. On the first MoE layer's captured
-   input the pack and unpack kernels must equal the index-based
-   ``scatter_to_bins``/``gather_from_bins`` bit for bit, and the layer
-   the same layer through those helpers (``moe_layer_indexed``); flash is
-   held against its plain version on the first attention call's q, k, v.
-   Decode as ``repro_torch.launch.serve`` does it (4 prompts of 16
-   tokens, 32 new tokens), timed; at a capacity factor of E (no unit can
-   drop, and the loads show none did) its logits over the prompt must
-   match prefill's within a tenth of the largest logit. Prints prefill
-   and decode tokens/s, peak memory, the init time, a ``torch.profiler``
-   breakdown of one prefill, the time of one layer's bf16 weight copies,
-   and decode and prefill with the checks that sync the host (on the
-   keys and on the pack's order) and without them, in turn.
+6. The ``decoder`` configs at full width, each once the last phase's
+   tensors are freed, parameters drawn on the card from the seed:
+   qwen2-moe-a2.7b (24 layers, d 2048, 60 routed experts top-4 and 4
+   shared, 14.3 G f32 parameters), deepseek-v2-lite-16b (27 layers of
+   MLA, 16 heads of q/k 192 and v 128 over a 512 latent; a leading dense
+   layer of d_ff 10,944, then 26 MoE layers of 64 routed experts top-6
+   and 2 shared; 15.7 G) and gemma-2b (18 layers, 8 heads of 256 over
+   one kv head, GeGLU of 16,384, scaled tied embeddings of 256,000;
+   2.5 G). ``make_prefill_step`` on 4 requests of 4,096 tokens must
+   launch the wgmma flash kernel once a layer and the blob pack and
+   unpack kernels once a MoE layer (the layer's scatter and gather), and
+   no other kernel (24/24/24, 27/26/26, 18/0/0), leave
+   ``MIN_HEADROOM_GB`` of the card free, and give finite logits; each MoE
+   layer's expert load and the units its capacity dropped are reported.
+   On the first MoE layer's captured input the pack and unpack kernels
+   must equal the index-based ``scatter_to_bins``/``gather_from_bins``
+   bit for bit, and the layer the same layer through those helpers
+   (``moe_layer_indexed``); flash is held against its plain version on
+   the first attention call's q, k, v (D 128, 192 and 256). Decode as
+   ``repro_torch.launch.serve`` does it (4 prompts of 16 tokens, 32 new
+   tokens), timed; at a capacity factor of E (no unit can drop, and the
+   loads show none did) its logits over the prompt must match prefill's
+   within a tenth of the largest logit. Prints prefill and decode
+   tokens/s, peak memory, the init time, a ``torch.profiler`` breakdown
+   of one prefill, and for the MoE configs the time of one layer's bf16
+   weight copies, and decode and prefill with the checks that sync the
+   host (on the keys and on the pack's order) and without them, in turn.
 7. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
@@ -85,10 +92,12 @@
    (``flash_attention_wide``), whose path is one call of
    ``flash_attention_op`` at that shape (``path``; its launches are
    counted from 0 over that call alone), with the ``mma.sync`` kernel's
-   time beside it (``mma_sync_ms``). The qwen2-moe prefill adds rows
-   with ``path`` ``qwen2_moe_prefill``: flash at head dim 128 and the
-   pack and unpack kernels at the MoE layer's shape (65,536 units of
-   2,048 bf16 into 60 bins of 1,368), each with its 24 launches.
+   time beside it (``mma_sync_ms``). Each decoder prefill adds rows with
+   its ``path`` (``qwen2_moe_prefill``, ``deepseek_v2_lite_prefill``,
+   ``gemma_2b_prefill``): flash at the prefill's shape (D 128, 192, 256
+   at B 4) and the pack and unpack kernels at the MoE layer's shape
+   (65,536 units of 2,048 bf16 into 60 bins of 1,368; 98,304 into 64
+   bins of 1,920), each with its launches in that prefill.
 8. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
@@ -134,12 +143,13 @@ FLASH_TOL = {torch.bfloat16: (8e-3, 1e-2, 5e-3), torch.float32: (2e-5, 1e-5, 1e-
 SSD_TOL = 1e-4                # atol and rtol, f32 outputs
 GAP_TOL_F32 = 5e-3            # prefill vs decode logits, f32 compute
 GAP_TOL_BF16 = 0.1            # ... bf16 compute, times the largest |logit|
-# qwen2-moe-a2.7b serving: 4 requests of 4,096 tokens (57.3 GB of f32
-# parameters, 5.0 GB of bf16 logits); decode as repro_torch.launch.serve
-# runs it, 4 prompts of 16 tokens and 32 new tokens
-MOE_ARCH = "qwen2-moe-a2.7b"
-MOE_PREFILL_BATCH = 4
-MOE_NEW_TOKENS = 32
+# the decoder configs' serving (qwen2-moe-a2.7b, 57.3 GB of f32
+# parameters and 5.0 GB of bf16 logits; deepseek-v2-lite-16b, 62.8 GB and
+# 3.4 GB; gemma-2b, 10.0 GB and 8.4 GB): 4 requests of 4,096 tokens;
+# decode as repro_torch.launch.serve runs it, 4 prompts of 16 tokens and
+# 32 new tokens
+DECODER_PREFILL_BATCH = 4
+DECODER_NEW_TOKENS = 32
 MIN_HEADROOM_GB = 4.0         # free device memory the prefill must leave
 
 
@@ -948,10 +958,10 @@ def moe_layer_indexed(cfg, p, x):
     return y.to(x.dtype), api._aux_loss(probs, pack.counts, U, E) * m.aux_loss_coef, pack.counts
 
 
-def qwen2_moe(seed: int) -> list:
-    """qwen2-moe-a2.7b prefill and decode at full width; returns the rows
-    of the kernels line for flash attention and the MoE layer's pack and
-    unpack."""
+def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
+    """``arch`` (a ``decoder`` config) prefill and decode at full width;
+    returns the rows of the kernels line for flash attention and, with a
+    MoE layer, the layer's pack and unpack."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -974,15 +984,16 @@ def qwen2_moe(seed: int) -> list:
     from repro_torch.serving import ServeConfig, make_prefill_step
     from repro_torch.shuffle import api, binning, dispatch
 
-    # the earlier phases' tensors must be gone: the f32 parameters alone
-    # take 57.3 GB of the card's 80
+    # the earlier phases' tensors must be gone: the f32 parameters of the
+    # MoE configs alone take 57.3 and 62.8 GB of the card's 80
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9
-    check(held_gb < 0.5, f"device memory free before qwen2-moe: {held_gb} GB held")
-    cfg = get_config(MOE_ARCH)
+    check(held_gb < 0.5, f"device memory free before {arch}: {held_gb} GB held")
+    cfg = get_config(arch)
     m = cfg.moe
-    E, k, d = m.num_experts, m.top_k, cfg.d_model
+    d = cfg.d_model
+    n_moe = cfg.num_layers - m.first_dense_layers if m is not None else 0
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     params = init_params(lm.LM(cfg, device="cuda"), gen)
@@ -990,7 +1001,7 @@ def qwen2_moe(seed: int) -> list:
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
     check(n_params == cfg.param_count(), f"{n_params} parameters")
-    B, S = MOE_PREFILL_BATCH, PREFILL_LEN
+    B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
                            dtype=torch.int32)
     prefill = make_prefill_step(cfg, ServeConfig())
@@ -998,8 +1009,11 @@ def qwen2_moe(seed: int) -> list:
         pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
         codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
     flash = flash_kernel.FLASH_WGMMA
-    per_layer = {flash.symbol: cfg.num_layers, pack_kernel.PACK.symbol: cfg.num_layers,
-                 unpack_kernel.UNPACK.symbol: cfg.num_layers}
+    # attention in every layer; the scatter and gather in every MoE layer
+    per_layer = {flash.symbol: cfg.num_layers}
+    if m is not None:
+        E, k = m.num_experts, m.top_k
+        per_layer.update({pack_kernel.PACK.symbol: n_moe, unpack_kernel.UNPACK.symbol: n_moe})
 
     # every MoE call's token count and expert load; the first call's
     # parameters and input, and the first flash call's q, k, v
@@ -1039,19 +1053,13 @@ def qwen2_moe(seed: int) -> list:
         flash_ops.flash_attention_cuda, moe_module.moe_apply = originals
     total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     check(launches == {s: per_layer.get(s, 0) for s in kernels},
-          f"one prefill: {cfg.num_layers} launches each of {sorted(per_layer)} and no "
-          f"other kernel: {launches}")
+          f"one prefill: {per_layer} launches and no other kernel: {launches}")
     check(total_gb - peak_gb >= MIN_HEADROOM_GB,
           f"prefill peak {peak_gb} GB leaves {MIN_HEADROOM_GB} GB of {total_gb}")
     check(tuple(logits.shape) == (B, S, cfg.vocab_size), f"logits shape {tuple(logits.shape)}")
     check(all(bool(torch.isfinite(logits[i]).all()) for i in range(B)), "prefill logits finite")
     logit_max = max(float(logits[i].abs().max()) for i in range(B))
     del logits
-    cap = dispatch._cap(B * S * k / E, m.capacity_factor)
-    layer_load = [ld.tolist() for _, _, ld in prefill_loads]
-    layer_drops = drops(prefill_loads)
-    check(len(layer_load) == cfg.num_layers and all(sum(ld) == B * S * k for ld in layer_load),
-          "every layer routes every unit")
     prefill_s = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1060,38 +1068,54 @@ def qwen2_moe(seed: int) -> list:
         prefill_s.append(time.perf_counter() - t0)
         del out
     prefill_s = min(prefill_s)
-    profile = profile_prefill(prefill, params, tokens, "qwen2_moe_prefill_profile", 25)
+    profile = profile_prefill(prefill, params, tokens,
+                              phase.replace("_serve", "_prefill_profile"), 25)
+    result = {"phase": phase, "arch": arch, "params": n_params, "param_init_s": init_s,
+              "prefill_batch": B, "prefill_len": S, "launches": launches,
+              "prefill_first_s": first_s, "prefill_s": prefill_s,
+              "prefill_tokens_per_s": B * S / prefill_s, "prefill_peak_memory_gb": peak_gb,
+              "device_memory_gb": total_gb, "prefill_logit_max_abs": logit_max}
 
-    # the captured MoE layer: the pack and unpack ops (the kernels) against
-    # the index-based binning helpers, and the layer against its plain
-    # version, bit for bit
-    p, z = captured["moe"]
-    xt = z.reshape(-1, d)
-    T = xt.shape[0]
-    U = T * k
-    _, sel_idx, _ = api._route(xt, p.router, k, True)
-    keys = sel_idx.reshape(-1)
-    unit_tok = torch.arange(T, dtype=torch.int32, device="cuda").repeat_interleave(k)
-    order, starts, counts = binning.sorted_order(keys, E)
-    pack = binning.pack_sorted(keys, order, starts, counts, cap)
-    tok_order = unit_tok[order]
-    ebuf = blob_pack(xt, tok_order, starts, counts, capacity=cap)
-    ebuf_want = binning.scatter_to_bins(xt[unit_tok], pack, E, cap)
-    check(same_bits(ebuf, ebuf_want), "MoE scatter: pack kernel == scatter_to_bins")
-    pack_err = max_abs_diff(ebuf, ebuf_want)
-    del ebuf_want
-    eout = api._expert_ffn(p.we_gate, p.we_up, p.we_down, cfg.compute_dtype)(ebuf)
-    y_units = blob_unpack(eout, pack.slot, pack.valid)
-    y_units_want = binning.gather_from_bins(eout, pack)
-    check(same_bits(y_units, y_units_want), "MoE gather: unpack kernel == gather_from_bins")
-    unpack_err = max_abs_diff(y_units, y_units_want)
-    del y_units_want
-    got = moe_module.moe_apply(cfg, p, z, shuffle=ServeConfig().shuffle)
-    want = moe_layer_indexed(cfg, p, z)
-    check(same_bits(got[0], want[0]) and same_bits(got[1], want[1])
-          and same_bits(got[2]["expert_load"], want[2]),
-          "MoE layer through the kernels == the layer through the binning helpers")
-    del got, want
+    if m is not None:
+        # each MoE layer's load and drops at the published capacity
+        cap = dispatch._cap(B * S * k / E, m.capacity_factor)
+        layer_load = [ld.tolist() for _, _, ld in prefill_loads]
+        check(len(layer_load) == n_moe and all(sum(ld) == B * S * k for ld in layer_load),
+              "every MoE layer routes every unit")
+        # the first MoE layer: the pack and unpack ops (the kernels)
+        # against the index-based binning helpers, and the layer against
+        # its plain version, bit for bit
+        p, z = captured["moe"]
+        xt = z.reshape(-1, d)
+        T = xt.shape[0]
+        U = T * k
+        _, sel_idx, _ = api._route(xt, p.router, k, True)
+        keys = sel_idx.reshape(-1)
+        unit_tok = torch.arange(T, dtype=torch.int32, device="cuda").repeat_interleave(k)
+        order, starts, counts = binning.sorted_order(keys, E)
+        pack = binning.pack_sorted(keys, order, starts, counts, cap)
+        tok_order = unit_tok[order]
+        ebuf = blob_pack(xt, tok_order, starts, counts, capacity=cap)
+        ebuf_want = binning.scatter_to_bins(xt[unit_tok], pack, E, cap)
+        check(same_bits(ebuf, ebuf_want), "MoE scatter: pack kernel == scatter_to_bins")
+        pack_err = max_abs_diff(ebuf, ebuf_want)
+        del ebuf_want
+        eout = api._expert_ffn(p.we_gate, p.we_up, p.we_down, cfg.compute_dtype)(ebuf)
+        y_units = blob_unpack(eout, pack.slot, pack.valid)
+        y_units_want = binning.gather_from_bins(eout, pack)
+        check(same_bits(y_units, y_units_want), "MoE gather: unpack kernel == gather_from_bins")
+        unpack_err = max_abs_diff(y_units, y_units_want)
+        del y_units_want
+        got = moe_module.moe_apply(cfg, p, z, shuffle=ServeConfig().shuffle)
+        want = moe_layer_indexed(cfg, p, z)
+        check(same_bits(got[0], want[0]) and same_bits(got[1], want[1])
+              and same_bits(got[2]["expert_load"], want[2]),
+              "MoE layer through the kernels == the layer through the binning helpers")
+        del got, want
+        result.update(capacity=cap, units_per_layer=B * S * k,
+                      first_moe_layer=cfg.num_layers - n_moe, expert_load_per_layer=layer_load,
+                      dropped_per_layer=drops(prefill_loads), moe_scatter_gather_bitwise=True,
+                      moe_layer_bitwise_vs_plain=True)
 
     # flash on the first attention call's q, k, v
     q, kk, v = captured["flash"]
@@ -1106,100 +1130,102 @@ def qwen2_moe(seed: int) -> list:
     flash_gap = f32p_gap(flash_out, torch.cat([
         flash_ref_f32p(q[i:i + 1], kk[i:i + 1], v[i:i + 1], causal=True)
         for i in range(q.shape[0])]))
+    result.update(flash_shape=list(q.shape), flash_kv_heads=kk.shape[2],
+                  flash_captured=flash_cmp, flash_captured_f32p_gap=flash_gap)
 
     # decode as repro_torch.launch.serve does it, timed at the published
-    # capacity, where a decode step of 16 units never drops. Against
-    # prefill of the same prompts at a capacity factor of E, where no unit
-    # can drop in either (the published factor drops others in a prefill
-    # of 256 units than in a decode step)
+    # config, where a decode step never drops a unit (a step's k units of
+    # a token go to k experts, at most B a bin of 8 or more). Against
+    # prefill of the same prompts with a MoE layer's capacity factor at
+    # E, where no unit can drop in either (the published factor drops
+    # others in a prefill of B * 16 tokens than in a decode step)
     prompts = tokens[:, :PROMPT_LEN].contiguous()
+    cfg_gap = cfg if m is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(m, capacity_factor=float(E)))
     moe_module.moe_apply = moe_recording
     try:
         loads.clear()
-        dec = generate(cfg, params, prompts, MOE_NEW_TOKENS)
-        decode_drops = sum(drops(loads))
+        dec = generate(cfg, params, prompts, DECODER_NEW_TOKENS)
+        decode_drops = sum(drops(loads)) if m is not None else 0
         loads.clear()
-        cfg_nd = dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=float(E)))
-        want = make_prefill_step(cfg_nd, ServeConfig())(params, {"tokens": prompts}).float()
-        dec_nd = generate(cfg_nd, params, prompts, 1)
-        nd_drops = sum(drops(loads))
+        want = make_prefill_step(cfg_gap, ServeConfig())(params, {"tokens": prompts}).float()
+        dec_gap = generate(cfg_gap, params, prompts, 1)
+        gap_drops = sum(drops(loads)) if m is not None else 0
     finally:
         moe_module.moe_apply = originals[1]
     check(bool(torch.isfinite(dec["logits"]).all()), "decode logits finite")
     check(decode_drops == 0, f"decode steps drop no unit ({decode_drops})")
-    check(nd_drops == 0, f"no unit dropped at capacity factor {E} ({nd_drops})")
-    gap = float((dec_nd["logits"].float() - want).abs().max())
+    check(gap_drops == 0, f"no unit dropped in the prefill/decode check ({gap_drops})")
+    gap = float((dec_gap["logits"].float() - want).abs().max())
     want_max = float(want.abs().max())
     check(gap <= GAP_TOL_BF16 * want_max,
           f"bf16 prefill vs decode logits: gap {gap}, largest logit {want_max}")
     steps, decode_s = dec["logits"].shape[1], dec["seconds"]
-    del dec, dec_nd, want
+    del dec, dec_gap, want
+    result.update(decode_batch=B, prompt_len=PROMPT_LEN, new_tokens=DECODER_NEW_TOKENS,
+                  decode_steps=steps, decode_s=decode_s,
+                  decode_tokens_per_s=B * steps / decode_s,
+                  decode_ms_per_step=decode_s / steps * 1e3, decode_dropped=decode_drops,
+                  prefill_decode_gap_bf16=gap, prefill_logit_max_abs_bf16=want_max,
+                  gap_tol_bf16=GAP_TOL_BF16 * want_max,
+                  gap_capacity_factor=None if m is None else float(E))
 
-    # the host syncs of the checks on the keys and on the pack's order (two
-    # per MoE layer): the same decode and prefill with them and without,
-    # in turn (the checks stay in the port; this only measures them)
-    def decode_ms_per_step():
-        return generate(cfg, params, prompts[:, :4], 12)["seconds"] / 15 * 1e3
+    if m is not None:
+        # the host syncs of the checks on the keys and on the pack's order
+        # (two per MoE layer): the same decode and prefill with them and
+        # without, in turn (the checks stay in the port; this only
+        # measures them)
+        def decode_ms_per_step():
+            return generate(cfg, params, prompts[:, :4], 12)["seconds"] / 15 * 1e3
 
-    def prefill_seconds():
-        t0 = time.perf_counter()
-        prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        def prefill_seconds():
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
 
-    def unchecked(fn):
-        binning.check_keys = pack_kernel.check_pack = lambda *a, **kw: None
-        try:
-            return fn()
-        finally:
-            binning.check_keys, pack_kernel.check_pack = _checks.check_keys, _checks.check_pack
+        def unchecked(fn):
+            binning.check_keys = pack_kernel.check_pack = lambda *a, **kw: None
+            try:
+                return fn()
+            finally:
+                binning.check_keys = _checks.check_keys
+                pack_kernel.check_pack = _checks.check_pack
 
-    sync_cost = {"decode_ms_per_step": [], "decode_ms_per_step_unchecked": [],
-                 "prefill_s": [], "prefill_s_unchecked": []}
-    for _ in range(2):
-        sync_cost["decode_ms_per_step"].append(decode_ms_per_step())
-        sync_cost["decode_ms_per_step_unchecked"].append(unchecked(decode_ms_per_step))
-        sync_cost["prefill_s"].append(prefill_seconds())
-        sync_cost["prefill_s_unchecked"].append(unchecked(prefill_seconds))
-    # the per-call bf16 copies of one MoE layer's f32 expert and shared weights
-    copies = [p.we_gate, p.we_up, p.we_down, p.shared.w_gate, p.shared.w_up, p.shared.w_down]
-    copy_ms = time_ms(lambda: [w.to(cfg.compute_dtype) for w in copies], 5)
-    emit({"phase": "qwen2_moe_serve", "arch": MOE_ARCH, "params": n_params,
-          "param_init_s": init_s, "prefill_batch": B, "prefill_len": S,
-          "launches": launches, "prefill_first_s": first_s, "prefill_s": prefill_s,
-          "prefill_tokens_per_s": B * S / prefill_s, "prefill_peak_memory_gb": peak_gb,
-          "device_memory_gb": total_gb, "prefill_logit_max_abs": logit_max,
-          "capacity": cap, "units_per_layer": B * S * k, "expert_load_per_layer": layer_load,
-          "dropped_per_layer": layer_drops, "moe_scatter_gather_bitwise": True,
-          "moe_layer_bitwise_vs_plain": True, "flash_captured": flash_cmp,
-          "flash_captured_f32p_gap": flash_gap, "decode_batch": B, "prompt_len": PROMPT_LEN,
-          "new_tokens": MOE_NEW_TOKENS, "decode_steps": steps, "decode_s": decode_s,
-          "decode_tokens_per_s": B * steps / decode_s,
-          "decode_ms_per_step": decode_s / steps * 1e3, "decode_dropped": decode_drops,
-          "prefill_decode_gap_bf16": gap, "prefill_logit_max_abs_bf16": want_max,
-          "gap_tol_bf16": GAP_TOL_BF16 * want_max, "gap_capacity_factor": float(E),
-          "check_sync_cost": sync_cost, "expert_weight_copy_ms_per_layer": copy_ms,
-          "ok": True})
+        sync_cost = {"decode_ms_per_step": [], "decode_ms_per_step_unchecked": [],
+                     "prefill_s": [], "prefill_s_unchecked": []}
+        for _ in range(2):
+            sync_cost["decode_ms_per_step"].append(decode_ms_per_step())
+            sync_cost["decode_ms_per_step_unchecked"].append(unchecked(decode_ms_per_step))
+            sync_cost["prefill_s"].append(prefill_seconds())
+            sync_cost["prefill_s_unchecked"].append(unchecked(prefill_seconds))
+        # the per-call bf16 copies of one MoE layer's f32 expert and shared
+        # weights
+        copies = [p.we_gate, p.we_up, p.we_down, p.shared.w_gate, p.shared.w_up,
+                  p.shared.w_down]
+        result.update(check_sync_cost=sync_cost, expert_weight_copy_ms_per_layer=time_ms(
+            lambda: [w.to(cfg.compute_dtype) for w in copies], 5))
+    emit({**result, "ok": True})
     emit(profile)
 
     # timing at the prefill's shapes, launching into the outputs above
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
-    row_bytes = d * xt.element_size()
-    live = int(torch.clamp(counts, max=cap).sum())
-    n_valid = int(pack.valid.sum())
-    pos = starts[:, None] + torch.arange(cap, device="cuda", dtype=torch.int32)
-    tok = tok_order[torch.clamp(pos, 0, U - 1)].reshape(-1)
-    flat_eout = eout.reshape(-1, d)
-    rows = []
-    for name, kern, run, plain, library, flops, nbytes, err, src, replaces, lib in (
-            ("flash_attention_moe", flash,
-             lambda: flash_kernel.launch(flash_out, q, kk, v, causal=True), flash_plain,
-             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                                      is_causal=True),
+    work = [(flash_row, flash, lambda: flash_kernel.launch(flash_out, q, kk, v, causal=True),
+             flash_plain,
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True),
              flash_flops(q.shape[0], q.shape[1], kk.shape[1], q.shape[2], q.shape[3]),
              2 * (2 * q.numel() + kk.numel() + v.numel()), flash_cmp["max_abs_err"],
              "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:68",
-             "torch.nn.functional.scaled_dot_product_attention"),
+             "torch.nn.functional.scaled_dot_product_attention")]
+    if m is not None:
+        row_bytes = d * xt.element_size()
+        live = int(torch.clamp(counts, max=cap).sum())
+        n_valid = int(pack.valid.sum())
+        pos = starts[:, None] + torch.arange(cap, device="cuda", dtype=torch.int32)
+        tok = tok_order[torch.clamp(pos, 0, U - 1)].reshape(-1)
+        flat_eout = eout.reshape(-1, d)
+        work += [
             ("moe_pack", pack_kernel.PACK,
              lambda: pack_kernel.launch(ebuf, xt, tok_order, starts, counts),
              lambda: blob_pack_ref(xt, tok_order, starts, counts, capacity=cap),
@@ -1212,12 +1238,15 @@ def qwen2_moe(seed: int) -> list:
              lambda: blob_unpack_ref(eout, pack.slot, pack.valid),
              lambda: torch.index_select(flat_eout, 0, pack.slot), 0,
              n_valid * row_bytes + U * row_bytes + 5 * U, unpack_err, "blob_kernels.cu",
-             "src/repro/kernels/blob_unpack/kernel.py:79", "torch.index_select")):
+             "src/repro/kernels/blob_unpack/kernel.py:79", "torch.index_select")]
+    rows = []
+    for name, kern, run, plain, library, flops, nbytes, err, src, replaces, lib in work:
         bound_ms, bound_by = bound(flops, nbytes)
         ms = time_ms(run, TIMED_RUNS)
         rows.append({
-            "name": name, "route": "cuda", "symbol": kern.symbol, "config": MOE_ARCH,
-            "path": "qwen2_moe_prefill", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "name": name, "route": "cuda", "symbol": kern.symbol, "config": arch,
+            "path": phase.replace("_serve", "_prefill"),
+            "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": launches[kern.symbol], "max_abs_err": err,
             "ms": ms, "plain_ms": time_ms(plain, 5, warmup=1), "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": time_ms(library, TIMED_RUNS),
@@ -1227,9 +1256,10 @@ def qwen2_moe(seed: int) -> list:
     torch.cuda.synchronize()
     check(flash_compare(flash_out, flash_plain())["ok"],
           "flash output unchanged by the timed launches")
-    check(same_bits(ebuf, binning.scatter_to_bins(xt[unit_tok], pack, E, cap))
-          and same_bits(y_units, binning.gather_from_bins(eout, pack)),
-          "pack and unpack outputs unchanged by the timed launches")
+    if m is not None:
+        check(same_bits(ebuf, binning.scatter_to_bins(xt[unit_tok], pack, E, cap))
+              and same_bits(y_units, binning.gather_from_bins(eout, pack)),
+              "pack and unpack outputs unchanged by the timed launches")
     return rows
 
 
@@ -1262,7 +1292,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()     # the deployment's tensors went with it
     wide_rows = model_kernel_phases(args.seed)
     rows += zamba2(args.seed) + wide_rows
-    rows += qwen2_moe(args.seed)     # Zamba2's tensors went with its phase
+    # each phase frees its tensors when it returns
+    rows += decoder_serve(args.seed, "qwen2-moe-a2.7b", "qwen2_moe_serve",
+                          "flash_attention_moe")
+    rows += decoder_serve(args.seed, "deepseek-v2-lite-16b", "deepseek_v2_lite_serve",
+                          "flash_attention_mla")
+    rows += decoder_serve(args.seed, "gemma-2b", "gemma_2b_serve", "flash_attention_gemma")
     emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -80,11 +80,12 @@ def assert_same_bits(a, b) -> None:
 
 def _jax_leaf(tree, name: str):
     """The JAX parameter of the port's parameter ``name``: a layer of the
-    ``nn.ModuleList`` ``blocks.<i>.<path>`` is row ``i`` of the stacked
-    leaf ``blocks/<path>``; every other name is a path as it stands."""
+    ``nn.ModuleList`` ``blocks.<i>.<path>`` (or ``dense_blocks.<i>.<path>``)
+    is row ``i`` of the stacked leaf ``blocks/<path>``
+    (``dense_blocks/<path>``); every other name is a path as it stands."""
     parts = name.split(".")
     layer = None
-    if parts[0] == "blocks":
+    if parts[0] in ("blocks", "dense_blocks"):
         layer = int(parts.pop(1))
     leaf = tree
     for part in parts:

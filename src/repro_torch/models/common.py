@@ -148,6 +148,15 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0          # 0 = no query compression (v2-lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class HybridConfig:
     """Zamba2-style: Mamba2 backbone with a shared attention block."""
     shared_block_every: int = 6   # one shared-block call per this many layers
@@ -173,10 +182,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False      # gemma: scale embeddings by sqrt(d)
     causal: bool = True
-    # the MLA and multimodal sub-configs come with their slices
+    # the multimodal sub-config comes with its slice
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    mla: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
     hybrid: Optional[HybridConfig] = None
     multimodal: Optional[Any] = None
     # numerics

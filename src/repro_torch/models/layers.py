@@ -1,8 +1,8 @@
 """Basic layers, the port of ``repro.models.layers``: RMSNorm, the
-SwiGLU MLP, embedding and unembedding, each a module that holds its
-parameters and a function that applies it. The GeGLU/GELU MLPs and the
-embedding scale of the decoder configs come with the decoder slice;
-``lm`` refuses configs that ask for them."""
+SwiGLU, GeGLU and plain GELU MLPs, embedding (with gemma's sqrt(d)
+scale) and unembedding, each a module that holds its parameters and a
+function that applies it. GELU is the tanh approximation, as
+``jax.nn.gelu``'s default."""
 
 from __future__ import annotations
 
@@ -28,22 +28,40 @@ def norm_spec(d: int) -> ArraySpec:
 
 
 class MLP(ParamModule):
-    """The SwiGLU MLP: ``w_gate``, ``w_up``, ``w_down``."""
+    """The MLP of ``cfg.mlp``: SwiGLU and GeGLU hold ``w_gate``, ``w_up``,
+    ``w_down``; plain GELU ``w_up``, ``b_up``, ``w_down``, ``b_down``
+    (the biases initialised to zero)."""
 
     def __init__(self, cfg: ModelConfig, d_ff: int, device):
         super().__init__()
         d, pd = cfg.d_model, cfg.param_dtype
-        self.declare("w_gate", ArraySpec((d, d_ff), pd, ("embed", "mlp")), device)
-        self.declare("w_up", ArraySpec((d, d_ff), pd, ("embed", "mlp")), device)
-        self.declare("w_down", ArraySpec((d_ff, d), pd, ("mlp", "embed")), device)
+        w_up = ArraySpec((d, d_ff), pd, ("embed", "mlp"))
+        w_down = ArraySpec((d_ff, d), pd, ("mlp", "embed"))
+        if cfg.mlp in ("swiglu", "geglu"):
+            self.declare("w_gate", w_up, device)
+            self.declare("w_up", w_up, device)
+            self.declare("w_down", w_down, device)
+        else:
+            self.declare("w_up", w_up, device)
+            self.declare("b_up", ArraySpec((d_ff,), pd, ("mlp",), init="zeros"), device)
+            self.declare("w_down", w_down, device)
+            self.declare("b_down", ArraySpec((d,), pd, ("embed",), init="zeros"), device)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.compute_dtype
     x = x.to(cd)
-    g = F.silu(x @ p.w_gate.to(cd))
-    u = x @ p.w_up.to(cd)
-    return (g * u) @ p.w_down.to(cd)
+    if cfg.mlp in ("swiglu", "geglu"):
+        act = F.silu if cfg.mlp == "swiglu" else _gelu
+        g = act(x @ p.w_gate.to(cd))
+        u = x @ p.w_up.to(cd)
+        return (g * u) @ p.w_down.to(cd)
+    h = _gelu(x @ p.w_up.to(cd) + p.b_up.to(cd))
+    return h @ p.w_down.to(cd) + p.b_down.to(cd)
 
 
 class Embedding(ParamModule):
@@ -60,7 +78,14 @@ class Embedding(ParamModule):
 
 def embed_apply(cfg: ModelConfig, p: Embedding,
                 tokens: torch.Tensor) -> torch.Tensor:
-    return p.tok[tokens.long()].to(cfg.compute_dtype)
+    """The token rows in the compute dtype; with ``cfg.embed_scale``
+    times sqrt(d) rounded to that dtype first, as the JAX package
+    multiplies by ``jnp.asarray(sqrt(d), cd)`` (a Python float would
+    stay at f32 opmath precision and round the product differently)."""
+    x = p.tok[tokens.long()].to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    return x
 
 
 def unembed_apply(cfg: ModelConfig, p: Embedding,

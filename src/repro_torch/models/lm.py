@@ -3,8 +3,13 @@
 
 Where the JAX package stacks every layer's parameters on a leading
 ``layers`` axis and scans over it, the port holds one module per layer in
-an ``nn.ModuleList`` and loops. A decoder block's FFN is the MoE layer
-when the config has one, else the SwiGLU MLP. The hybrid model runs
+an ``nn.ModuleList`` and loops. A decoder block's attention is MLA
+(``models.mla``) when ``cfg.mla`` is set, else GQA/MQA/MHA; its FFN is
+the MoE layer when the config has one, else the MLP of ``cfg.mlp``
+(SwiGLU, GeGLU or GELU). A MoE model's ``moe.first_dense_layers``
+leading layers are ``dense_blocks``, whose MLP has width
+``moe.dense_d_ff``; they run before ``blocks``, the MoE layers, and have
+a decode cache of their own. The hybrid model runs
 groups of ``shared_block_every`` Mamba2 layers, each followed by the
 shared attention block on ``concat(x, x0) @ shared_in[g]``, with the
 residual ``x + y - z``.
@@ -17,12 +22,12 @@ Public surface:
   * ``decode_step(cfg, params, cache, batch, shuffle=DENSE)`` - one-token serve step
 
 ``shuffle`` selects the MoE dispatch; on one device every mode takes the
-dense dispatch. The ``encoder`` kind and options the port has no layers
-for yet (MLA, MoE models with leading dense layers, multimodal
-frontends, GeGLU/GELU MLPs, embedding scale) raise ``ValueError``
-naming them; they come with later slices of the port. So does
-``ssm.intra_bf16``: the JAX package then holds the intra-chunk tensors
-in bf16, and the port's SSD chunk computes in f32 only.
+dense dispatch. What the port does not run raises ``ValueError`` naming
+it: the ``encoder`` kind and the multimodal frontends, which come with
+later slices; a MoE layer or MLA outside the ``decoder`` kind, which the
+JAX package's ``ssm`` and ``hybrid`` kinds have no cache or layer for;
+and ``ssm.intra_bf16``: the JAX package then holds the intra-chunk
+tensors in bf16, and the port's SSD chunk computes in f32 only.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ArraySpec, ModelConfig, ParamModule,
@@ -47,15 +53,17 @@ def _check_kind(cfg: ModelConfig) -> None:
         raise ValueError(f"the port has no {cfg.kind!r} kind yet "
                          f"({cfg.name}); it runs {KINDS}")
     unsupported = [name for name, on in (
-        ("mlp=" + cfg.mlp, cfg.mlp != "swiglu"),
-        ("embed_scale", cfg.embed_scale),
         ("moe outside the decoder kind", cfg.moe is not None and cfg.kind != "decoder"),
-        ("moe.first_dense_layers",
-         cfg.moe is not None and cfg.moe.first_dense_layers > 0),
+        ("mla outside the decoder kind", cfg.mla is not None and cfg.kind != "decoder"),
         ("ssm.intra_bf16", cfg.ssm is not None and cfg.ssm.intra_bf16),
-        ("mla", cfg.mla is not None), ("multimodal", cfg.multimodal is not None)) if on]
+        ("multimodal", cfg.multimodal is not None)) if on]
     if unsupported:
         raise ValueError(f"{cfg.name}: the port does not run {unsupported} yet")
+
+
+def _dense_layers(cfg: ModelConfig) -> int:
+    """The leading dense layers of a MoE decoder (``dense_blocks``)."""
+    return cfg.moe.first_dense_layers if cfg.moe is not None else 0
 
 
 class SSMBlock(ParamModule):
@@ -68,28 +76,37 @@ class SSMBlock(ParamModule):
 
 
 class Block(ParamModule):
-    """Pre-norm transformer block: attention, then the FFN, the MoE layer
-    (``moe=True``) or the SwiGLU MLP."""
+    """Pre-norm transformer block: attention (MLA when ``cfg.mla`` is
+    set), then the FFN, the MoE layer (``moe=True``) or the MLP of width
+    ``d_ff`` (``cfg.d_ff`` unless given)."""
 
-    def __init__(self, cfg: ModelConfig, device, *, moe: bool = False):
+    def __init__(self, cfg: ModelConfig, device, *, moe: bool = False,
+                 d_ff: int | None = None):
         super().__init__()
         self.declare("ln1", L.norm_spec(cfg.d_model), device)
-        self.attn = A.Attention(cfg, device)
+        self.attn = (MLA.MLA(cfg, device) if cfg.mla is not None
+                     else A.Attention(cfg, device))
         self.declare("ln2", L.norm_spec(cfg.d_model), device)
-        self.ffn = MOE.MoE(cfg, device) if moe else L.MLP(cfg, cfg.d_ff, device)
+        self.ffn = (MOE.MoE(cfg, device) if moe
+                    else L.MLP(cfg, d_ff or cfg.d_ff, device))
 
 
 class LM(ParamModule):
     """The parameters of a ``decoder``, ``ssm`` or ``hybrid`` model, on
-    ``device`` (uninitialised: draw them with ``common.init_params``)."""
+    ``device`` (uninitialised: draw them with ``common.init_params``).
+    A decoder holds ``dense_blocks`` (empty unless the MoE config has
+    leading dense layers) and ``blocks``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _check_kind(cfg)
         self.embed = L.Embedding(cfg, device)
         if cfg.kind == "decoder":
+            n_dense = _dense_layers(cfg)
+            self.dense_blocks = nn.ModuleList(
+                Block(cfg, device, d_ff=cfg.moe.dense_d_ff) for _ in range(n_dense))
             self.blocks = nn.ModuleList(Block(cfg, device, moe=cfg.moe is not None)
-                                        for _ in range(cfg.num_layers))
+                                        for _ in range(cfg.num_layers - n_dense))
         else:
             self.blocks = nn.ModuleList(SSMBlock(cfg, device)
                                         for _ in range(cfg.num_layers))
@@ -124,8 +141,8 @@ def _ffn_apply(cfg: ModelConfig, p: Block, z: torch.Tensor, shuffle: ShuffleConf
 def _block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor,
                  positions: torch.Tensor, *, shuffle: ShuffleConfig = DENSE):
     """Pre-norm transformer block. Returns (x, aux)."""
-    h = A.attention_apply(cfg, p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps),
-                          positions=positions)
+    attn = MLA.mla_apply if cfg.mla is not None else A.attention_apply
+    h = attn(cfg, p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps), positions=positions)
     x = x + h
     y, aux = _ffn_apply(cfg, p, L.rms_norm(x, p.ln2, cfg.norm_eps), shuffle)
     return x + y, aux
@@ -154,7 +171,7 @@ def forward(cfg: ModelConfig, params: LM, batch: dict, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.kind == "decoder":
         auxes = []
-        for blk in params.blocks:
+        for blk in (*params.dense_blocks, *params.blocks):
             x, a = _block_apply(cfg, blk, x, positions, shuffle=shuffle)
             auxes.append(a)
         aux = torch.stack(auxes).sum()
@@ -184,8 +201,12 @@ def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """Decode-cache specs, stacked per layer as in the JAX package."""
     _check_kind(cfg)
     if cfg.kind == "decoder":
-        return {"blocks": A.attention_cache_defs(cfg, batch, max_seq,
-                                                 stacked=cfg.num_layers)}
+        n_dense = _dense_layers(cfg)
+        mk = MLA.mla_cache_defs if cfg.mla is not None else A.attention_cache_defs
+        out = {"blocks": mk(cfg, batch, max_seq, stacked=cfg.num_layers - n_dense)}
+        if n_dense:
+            out["dense_blocks"] = mk(cfg, batch, max_seq, stacked=n_dense)
+        return out
     out = {"blocks": SSM.mamba2_cache_defs(cfg, batch, stacked=cfg.num_layers)}
     if cfg.kind == "hybrid":
         n_inv = cfg.num_layers // cfg.hybrid.shared_block_every
@@ -199,8 +220,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
 
 def _block_decode(cfg: ModelConfig, p: Block, x, cache: dict, pos: int, *,
                   shuffle: ShuffleConfig = DENSE):
-    h, cache = A.attention_decode(cfg, p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps),
-                                  cache, pos)
+    attn = MLA.mla_decode if cfg.mla is not None else A.attention_decode
+    h, cache = attn(cfg, p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps), cache, pos)
     x = x + h
     y, _ = _ffn_apply(cfg, p, L.rms_norm(x, p.ln2, cfg.norm_eps), shuffle)
     return x + y, cache
@@ -227,9 +248,10 @@ def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict, *,
     pos = int(batch["pos"])
     x = L.embed_apply(cfg, params.embed, batch["tokens"])
     if cfg.kind == "decoder":
-        for layer, blk in enumerate(params.blocks):
-            c = {name: t[layer] for name, t in cache["blocks"].items()}
-            x, _ = _block_decode(cfg, blk, x, c, pos, shuffle=shuffle)
+        for stack in ("dense_blocks", "blocks"):
+            for layer, blk in enumerate(getattr(params, stack)):
+                c = {name: t[layer] for name, t in cache[stack].items()}
+                x, _ = _block_decode(cfg, blk, x, c, pos, shuffle=shuffle)
     elif cfg.kind == "ssm":
         for layer, blk in enumerate(params.blocks):
             x = _ssm_block_decode(cfg, blk, x, cache, layer, pos)

@@ -1,10 +1,14 @@
-"""The port's ``decoder`` kind with the MoE layer against the JAX package,
-at ``qwen2-moe-smoke`` size, with the JAX package's parameters loaded
-through ``repro_torch.interop.params_from_jax``: the parameter tree,
-``lm.forward`` with the flash branch taken, decode steps from a zero
-cache, the cache specs, and the options the port still refuses. Inputs
-are made with numpy from a seed. The zero-initialised norms and q/k/v
-biases are given values so that they count.
+"""The port's ``decoder`` kind against the JAX package, at the smoke
+sizes of qwen2-moe (the MoE layer, q/k/v biases), deepseek-v2-lite (MLA,
+a leading dense layer, 8 experts top-2 and 2 shared) and gemma-2b
+(GeGLU, MQA, sqrt(d)-scaled tied embeddings), with the JAX package's
+parameters loaded through ``repro_torch.interop.params_from_jax``: the
+parameter tree (``dense_blocks`` included), ``lm.forward`` with the
+flash branch taken, decode steps from a zero cache carried by
+``cache_from_jax``, the cache specs, the GeGLU and GELU MLPs, the
+embedding scale bit for bit, and the options the port still refuses.
+Inputs are made with numpy from a seed. The zero-initialised norms,
+q/k/v biases and MLA ``kv_norm`` are given values so that they count.
 
 Tolerances (absolute): f32 1e-4 on logits of size ~10, bf16 1e-1, as for
 the Zamba2 models (``tests/test_torch_zamba2.py``). The router runs in
@@ -17,7 +21,12 @@ probabilities differ by ~1e-4 at the median and up to ~7e-4, on
 probabilities of ~1/6). The tokens that depend on a flipped token (its
 own and every later position of its row, by the causal mask) are left
 out of the bf16 comparison, and need no near tie to flip again; the
-rest must hold 1e-1. In f32 there is no flip.
+rest must hold 1e-1. In f32 there is no flip. The kept share of the
+prefill's tokens must exceed ``MIN_KEPT``: half for qwen2-moe-smoke (6
+experts top-2, 2 MoE layers), a quarter for deepseek-v2-lite-smoke,
+whose 8 experts top-2 put the k-th and (k+1)-th probabilities closer
+(its seed-0 prefill flips at positions 18 and 29 of its two rows, at
+JAX margins under 1e-4), all of them for gemma-2b, which has no router.
 """
 
 import dataclasses
@@ -33,13 +42,14 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.configs import get_config as jax_get_config
+from repro.models import layers as jlayers
 from repro.models import lm as jlm
-from repro.models.common import MLAConfig, MultimodalConfig
+from repro.models.common import MultimodalConfig
 from repro.models.common import init_params as jax_init_params
 from repro.shuffle import api as japi
 from repro_torch.configs import get_config
-from repro_torch.interop import cache_from_jax, params_from_jax, to_numpy
-from repro_torch.models import lm
+from repro_torch.interop import cache_from_jax, params_from_jax, to_numpy, to_torch
+from repro_torch.models import layers, lm
 from repro_torch.models.common import init_params
 from repro_torch.shuffle import api
 
@@ -48,6 +58,12 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 FLIP_MARGIN = 1e-3
+DEEPSEEK, GEMMA = "deepseek-v2-lite-16b", "gemma-2b"
+MIN_KEPT = {ARCH: 0.5, DEEPSEEK: 0.25, GEMMA: 0.99}
+# every arch in both dtypes; qwen2-moe's cases keep the ids they had
+# before the other archs came
+ARCH_DTYPES = [pytest.param(a, d, id=d if a == ARCH else f"{a}-{d}")
+               for a in (ARCH, DEEPSEEK, GEMMA) for d in ("float32", "bfloat16")]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -58,11 +74,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _configs(dtype, **kw):
+def _configs(dtype, arch=ARCH, **kw):
     jd, td = DTYPES[dtype]
-    jcfg = dataclasses.replace(jax_get_config(ARCH, smoke=True), compute_dtype=jd, **kw)
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), compute_dtype=td, **kw)
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), compute_dtype=jd, **kw)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype=td, **kw)
     return jcfg, cfg
+
+
+def _moe_layers(cfg):
+    return 0 if cfg.moe is None else cfg.num_layers - cfg.moe.first_dense_layers
 
 
 def _jax_params(jcfg, seed=0):
@@ -166,10 +186,88 @@ def test_init_params_draws_the_specs_distributions():
     assert float(model.blocks[0].attn.bq.abs().max()) == 0.0            # zeros
 
 
+def test_params_from_jax_maps_the_dense_blocks():
+    jcfg, cfg = _configs("bfloat16", DEEPSEEK)
+    jparams = _jax_params(jcfg)
+    model = params_from_jax(cfg, jparams, device="cpu")
+    assert len(model.dense_blocks) == 1 and len(model.blocks) == cfg.num_layers - 1
+    dense, blocks = jparams["dense_blocks"], jparams["blocks"]
+    for name, want in (("attn.wq", dense["attn"]["wq"]), ("attn.kv_norm", dense["attn"]["kv_norm"]),
+                       ("ffn.w_gate", dense["ffn"]["w_gate"])):
+        got = model.get_parameter(f"dense_blocks.0.{name}")
+        assert torch.equal(got, torch.from_numpy(np.ascontiguousarray(want[0])))
+    assert model.dense_blocks[0].ffn.w_up.shape == (cfg.d_model, cfg.moe.dense_d_ff)
+    for layer in range(len(model.blocks)):
+        assert torch.equal(model.blocks[layer].attn.w_uv,
+                           torch.from_numpy(np.ascontiguousarray(blocks["attn"]["w_uv"][layer])))
+        assert torch.equal(model.blocks[layer].ffn.we_down,
+                           torch.from_numpy(np.ascontiguousarray(blocks["ffn"]["we_down"][layer])))
+    n_jax = sum(np.asarray(a).size for a in jax.tree.leaves(jparams))
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+    names = {re.sub(r"^(dense_blocks|blocks)\.\d+\.", r"\1.", n)
+             for n, _ in model.named_parameters()}
+    assert names == {".".join(k.key for k in path)
+                     for path, _ in jax.tree.leaves_with_path(jparams)}
+    for arch, count in ((DEEPSEEK, 15_706_484_224), (GEMMA, 2_506_172_416)):
+        assert get_config(arch).param_count() == jax_get_config(arch).param_count() == count
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_forward_matches_jax_with_the_flash_branch(dtype, routes):
+@pytest.mark.parametrize("mlp", ["geglu", "gelu"])
+def test_mlp_apply_matches_jax(mlp, dtype):
+    jcfg, cfg = _configs(dtype, GEMMA, mlp=mlp)
+    jp = jax.tree.map(np.asarray, jax_init_params(jlayers.mlp_defs(jcfg, cfg.d_ff),
+                                                  jax.random.key(3)))
+    rng = np.random.default_rng(3)
+    jp = {k: v + (0.1 * rng.standard_normal(v.shape).astype(np.float32) if k[0] == "b" else 0)
+          for k, v in jp.items()}             # the GELU MLP's zero biases
+    p = layers.MLP(cfg, cfg.d_ff, device="cpu")
+    assert set(p.specs) == set(jp)
+    with torch.no_grad():
+        for name, v in jp.items():
+            getattr(p, name).copy_(to_torch(v, "cpu"))
+    x = rng.standard_normal((2, 9, cfg.d_model)).astype(np.float32)
+    want = jlayers.mlp_apply(jcfg, jp, jnp.asarray(x, jcfg.compute_dtype))
+    got = layers.mlp_apply(cfg, p, to_torch(x, "cpu").to(cfg.compute_dtype))
+    assert got.dtype == cfg.compute_dtype
+    _close(got, want, TOL[dtype])
+
+
+def test_embed_scale_matches_jax_bit_for_bit():
+    """gemma's sqrt(2048) rounds to 45.25 in bf16, and the JAX package
+    multiplies by that; the port's scaled rows have the same bits."""
+    jcfg, cfg = _configs("bfloat16", GEMMA, d_model=2048)
+    tok = np.random.default_rng(9).standard_normal((cfg.vocab_size, 2048)).astype(np.float32)
+    tokens = _tokens(3, 17)
+    want = jlayers.embed_apply(jcfg, {"tok": jnp.asarray(tok)}, jnp.asarray(tokens))
+    emb = layers.Embedding(cfg, device="cpu")
+    with torch.no_grad():
+        emb.tok.copy_(torch.from_numpy(tok))
+    got = layers.embed_apply(cfg, emb, torch.from_numpy(tokens))
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(to_numpy(got).view(np.uint16), np.asarray(want).view(np.uint16))
+    # a Python float scale would round some products differently
+    unscaled = layers.embed_apply(dataclasses.replace(cfg, embed_scale=False), emb,
+                                  torch.from_numpy(tokens))
+    assert not torch.equal(unscaled * 2048 ** 0.5, got)
+
+
+def _kept(jrec, trec, cfg, shape, where):
+    """The (row, position) mask of the tokens that no router flip reaches
+    (all of them for a model without MoE layers)."""
+    keep = np.ones(shape, bool)
+    if cfg.moe is None:
+        assert not jrec and not trec
+        return keep
+    for b, s in _first_flips(jrec, trec, cfg.moe.top_k, where).items():
+        keep[b, s:] = False
+    return keep
+
+
+@pytest.mark.parametrize("arch,dtype", ARCH_DTYPES)
+def test_forward_matches_jax_with_the_flash_branch(arch, dtype, routes):
     # flash_min_seq 16 < S = 64: every layer takes the flash branch
-    jcfg, cfg = _configs(dtype, flash_min_seq=16)
+    jcfg, cfg = _configs(dtype, arch, flash_min_seq=16)
     jparams = _jax_params(jcfg)
     model = params_from_jax(cfg, jparams, device="cpu")
     B, S = 2, 64
@@ -177,24 +275,21 @@ def test_forward_matches_jax_with_the_flash_branch(dtype, routes):
     want, aux_want = jax.jit(partial(jlm.forward, jcfg))(jparams, {"tokens": jnp.asarray(tok)})
     got, aux = lm.forward(cfg, model, {"tokens": torch.from_numpy(tok)})
     assert got.shape == want.shape and got.dtype == cfg.compute_dtype
-    assert aux.dtype == torch.float32 and float(aux) > 0
+    assert aux.dtype == torch.float32 and (float(aux) > 0) == (cfg.moe is not None)
     jrec, trec = routes
-    assert len(trec) == cfg.num_layers
-    first = _first_flips(jrec, trec, cfg.moe.top_k, lambda i, u: divmod(u, S))
-    keep = np.ones((B, S), bool)
-    for b, s in first.items():
-        keep[b, s:] = False
+    assert len(trec) == _moe_layers(cfg)
+    keep = _kept(jrec, trec, cfg, (B, S), lambda i, u: divmod(u, S))
     if dtype == "float32":
         assert keep.all()
-    assert keep.mean() > 0.5, keep.mean()
+    assert keep.mean() > MIN_KEPT[arch], keep.mean()
     _close(got, want, TOL[dtype], keep)
     np.testing.assert_allclose(float(aux), float(aux_want),
                                rtol=1e-5 if dtype == "float32" else 1e-2)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_steps_match_jax(dtype, routes):
-    jcfg, cfg = _configs(dtype)
+@pytest.mark.parametrize("arch,dtype", ARCH_DTYPES)
+def test_decode_steps_match_jax(arch, dtype, routes):
+    jcfg, cfg = _configs(dtype, arch)
     jparams = _jax_params(jcfg)
     model = params_from_jax(cfg, jparams, device="cpu")
     B, steps = 2, 8
@@ -211,19 +306,20 @@ def test_decode_steps_match_jax(dtype, routes):
         got.append(g[:, 0])
         want.append(np.asarray(w[:, 0], np.float32))
     jrec, trec = routes
-    assert len(trec) == steps * cfg.num_layers
-    first = _first_flips(jrec, trec, cfg.moe.top_k,
-                         lambda i, u: (u, i // cfg.num_layers))
-    keep = np.ones((B, steps), bool)
-    for b, t in first.items():
-        keep[b, t:] = False
+    n_moe = _moe_layers(cfg)
+    assert len(trec) == steps * n_moe
+    keep = _kept(jrec, trec, cfg, (B, steps), lambda i, u: (u, i // n_moe))
     if dtype == "float32":
         assert keep.all()
     _close(torch.stack(got, dim=1), np.stack(want, axis=1), TOL[dtype], keep)
     rows = keep.all(axis=1)
-    for name in ("k", "v"):
-        _close(cache["blocks"][name][:, rows], np.asarray(jcache["blocks"][name],
-                                                          np.float32)[:, rows], TOL[dtype])
+    flat = jax.tree.leaves_with_path(jcache)
+    assert len(flat) == (4 if arch == DEEPSEEK else 2)
+    for path, leaf in flat:
+        mine = cache
+        for k in path:
+            mine = mine[k.key]
+        _close(mine[:, rows], np.asarray(leaf, np.float32)[:, rows], TOL[dtype])
 
 
 def test_decode_writes_the_kv_cache_in_place():
@@ -239,17 +335,19 @@ def test_decode_writes_the_kv_cache_in_place():
 
 
 def test_cache_defs_match_jax():
-    jcfg, cfg = _configs("bfloat16")
-    jdefs = jlm.cache_defs(jcfg, 3, 20)
-    defs = lm.cache_defs(cfg, 3, 20)
-    flat = jax.tree.leaves_with_path(jdefs, is_leaf=lambda s: hasattr(s, "shape"))
-    assert len(flat) == 2
-    for path, spec in flat:
-        mine = defs
-        for k in path:
-            mine = mine[k.key]
-        assert tuple(mine.shape) == tuple(spec.shape), path
-        assert str(mine.dtype).split(".")[-1] == np.dtype(spec.dtype).name, path
+    for arch, n_leaves in ((ARCH, 2), (DEEPSEEK, 4), (GEMMA, 2)):
+        jcfg, cfg = _configs("bfloat16", arch)
+        jdefs = jlm.cache_defs(jcfg, 3, 20)
+        defs = lm.cache_defs(cfg, 3, 20)
+        flat = jax.tree.leaves_with_path(jdefs, is_leaf=lambda s: hasattr(s, "shape"))
+        assert len(flat) == n_leaves
+        assert set(defs) == set(jdefs)
+        for path, spec in flat:
+            mine = defs
+            for k in path:
+                mine = mine[k.key]
+            assert tuple(mine.shape) == tuple(spec.shape), path
+            assert str(mine.dtype).split(".")[-1] == np.dtype(spec.dtype).name, path
 
 
 def test_the_decoder_without_moe_runs_the_mlp():
@@ -261,16 +359,13 @@ def test_the_decoder_without_moe_runs_the_mlp():
 
 
 @pytest.mark.parametrize("field,value,name", [
-    ("moe.first_dense_layers", 1, "first_dense_layers"), ("mla", MLAConfig(), "mla"),
-    ("kind", "encoder", "encoder"), ("mlp", "geglu", "geglu"),
+    ("kind", "ssm", "moe outside the decoder kind"),
+    ("kind", "hybrid", "moe outside the decoder kind"),
+    ("kind", "encoder", "encoder"),
+    ("multimodal", MultimodalConfig(kind="audio"), "multimodal"),
     ("multimodal", MultimodalConfig(), "multimodal")])
 def test_what_the_decoder_does_not_run_raises_naming_it(field, value, name):
-    cfg = get_config(ARCH, smoke=True)
-    if field.startswith("moe."):
-        moe = dataclasses.replace(cfg.moe, **{field[4:]: value, "dense_d_ff": 96})
-        cfg = dataclasses.replace(cfg, moe=moe)
-    else:
-        cfg = dataclasses.replace(cfg, **{field: value})
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), **{field: value})
     for call in (lambda: lm.LM(cfg, device="meta"), lambda: lm.cache_defs(cfg, 1, 4),
                  lambda: lm.forward(cfg, None, {})):
         with pytest.raises(ValueError, match=name):

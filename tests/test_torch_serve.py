@@ -79,7 +79,10 @@ def _port_gap(cfg, model, tok):
     return gap, got
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-130m", "qwen2-moe-a2.7b"])
+ARCHS = ["zamba2-2.7b", "mamba2-130m", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "gemma-2b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_gap_within_twice_jax(arch):
     jcfg, cfg, jparams, model = _setup(arch)
     tok = _prompts(cfg.vocab_size, 4, 16)
@@ -103,7 +106,7 @@ def test_prefill_matches_jax_in_f32():
                        torch.from_numpy(np.array(jengine.greedy_sample(jnp.asarray(want)))))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-130m", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_cli_runs_on_cpu(arch):
     out = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "5", "--tokens", "6"])

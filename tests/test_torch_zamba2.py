@@ -31,7 +31,7 @@ import numpy as np
 from repro.configs import get_config as jax_get_config
 from repro.models import lm as jlm
 from repro.models import ssm as jssm
-from repro.models.common import MLAConfig, MultimodalConfig
+from repro.models.common import MLAConfig, MoEConfig, MultimodalConfig
 from repro.models.common import init_params as jax_init_params
 from repro.shuffle.api import ShuffleConfig as JaxShuffleConfig
 from repro_torch.configs import get_config
@@ -182,14 +182,16 @@ def test_cache_defs_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mla", MLAConfig()), ("kind", "encoder"), ("mlp", "geglu"),
-    ("multimodal", MultimodalConfig()), ("embed_scale", True)])
+    ("mla", MLAConfig()), ("kind", "encoder"), ("moe", MoEConfig(8, 2, 96)),
+    ("multimodal", MultimodalConfig()), ("moe", MoEConfig(4, 1, 32))])
 def test_what_the_port_does_not_run_raises_naming_it(field, value):
-    cfg = dataclasses.replace(get_config("zamba2-2.7b", smoke=True), **{field: value})
+    # MLA and a MoE layer run in the decoder kind only; the last case puts
+    # a MoE layer on the ssm kind (mamba2-130m), the others on the hybrid
+    arch = "mamba2-130m" if value == MoEConfig(4, 1, 32) else "zamba2-2.7b"
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **{field: value})
     for call in (lambda: lm.LM(cfg), lambda: lm.cache_defs(cfg, 1, 4),
                  lambda: lm.forward(cfg, None, {})):
-        with pytest.raises(ValueError, match=str(value) if field in ("kind", "mlp")
-                           else field):
+        with pytest.raises(ValueError, match=str(value) if field == "kind" else field):
             call()
 
 
