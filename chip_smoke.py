@@ -78,7 +78,31 @@
    of one prefill, and for the MoE configs the time of one layer's bf16
    weight copies, and decode and prefill with the checks that sync the
    host (on the keys and on the pack's order) and without them, in turn.
-7. Prints one ``kernels`` line: per kernel its launches on its main path
+7. deepseek-v2-lite-16b at full width once more, its MoE layers over the
+   ranks of a stacked mesh (``EP_MESH``: pod 2 x model 16, the EP domain
+   of the JAX package's multi-pod production mesh, the data axis cut
+   from 16 to 1), phase ``deepseek_v2_lite_ep``. ``make_prefill_step``
+   with the mesh on 4 requests of 4,096 tokens in the ``direct``,
+   ``blob`` and ``blob`` with int8 modes (capacity factor 1.25): the
+   wgmma flash kernel once a layer, and the pack and unpack kernels once
+   a MoE layer each in direct, five and three times in blob
+   (``EP_LAUNCHES``), and no other kernel; ``MIN_HEADROOM_GB`` free;
+   finite logits; every MoE layer's ``dcn_bytes`` equal to
+   ``EP_DCN_BYTES`` (counted from the buffer shapes; the stacked
+   all-to-all is a copy on one card, not a network), its loads and drops
+   reported; one blob prefill under ``torch.profiler``. On layer 1's
+   captured input, each mode through the kernels must equal, bit for
+   bit, the same layer through the index-based binning helpers rank by
+   rank (``binning.IndexedBinning``), its loads the dense layer's; at a
+   capacity factor of E the first ``EP_NO_DROP_TOKENS`` tokens drop no
+   unit and flat and blob lie within ``EP_DENSE_TOL`` of the dense layer,
+   blob with int8 within ``EP_INT8_TOL``; the routed part of the layer is timed in each
+   mode and in the dense one. Decode in blob mode as
+   ``repro_torch.launch.serve`` runs it (4 prompts of 16 tokens, 32 new
+   tokens, each step's 4 tokens padded to the 32 ranks), timed, and
+   within a tenth of the largest logit of prefill at a capacity factor
+   of E.
+8. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
@@ -97,8 +121,14 @@
    ``gemma_2b_prefill``): flash at the prefill's shape (D 128, 192, 256
    at B 4) and the pack and unpack kernels at the MoE layer's shape
    (65,536 units of 2,048 bf16 into 60 bins of 1,368; 98,304 into 64
-   bins of 1,920), each with its launches in that prefill.
-8. Ends with ``{"ok": true, "device": {...}}``.
+   bins of 1,920), each with its launches in that prefill. The EP phase
+   adds the pack and unpack rows at each mode's stage-1 shapes (32 ranks
+   of 3,072 units of 2,048 bf16 into 64 lanes of 64, or 16 blobs of
+   240), ``path`` ``deepseek_v2_lite_ep_<mode>_prefill``, with the
+   kernel's launches in that prefill (``launches``, all shapes) and
+   those at the timed shape (``launches_at_timed_shape``, one a MoE
+   layer).
+9. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -151,6 +181,30 @@ GAP_TOL_BF16 = 0.1            # ... bf16 compute, times the largest |logit|
 DECODER_PREFILL_BATCH = 4
 DECODER_NEW_TOKENS = 32
 MIN_HEADROOM_GB = 4.0         # free device memory the prefill must leave
+# deepseek-v2-lite-16b's expert-parallel serving: the EP domain of the JAX
+# package's multi-pod production mesh (pod 2 x model 16), its data axis
+# cut from 16 to 1 because one card holds the whole batch; 32 stacked
+# ranks of 2 experts and 512 tokens each
+EP_MESH = {"pod": 2, "data": 1, "model": 16}
+EP_MODES = {"direct": ("direct", False), "blob": ("blob", False),
+            "blob_int8": ("blob", True)}
+# pack and unpack launches a MoE layer: flat scatters and gathers once;
+# blob packs the payload and the metadata of stages 1 and 2 and the
+# experts' payload, and gathers back through all three stages
+EP_LAUNCHES = {"direct": (1, 1), "blob": (5, 3), "blob_int8": (5, 3)}
+# dcn_bytes of each MoE layer of the 4 x 4,096 prefill: buffer sizes
+# (flat (32, 128, 2048) bf16 sends; blob (2, 1632, 2048); int8 with an
+# f32 scale a row), half of which cross the pods, summed over 32 ranks
+EP_DCN_BYTES = {"direct": 268_435_456, "blob": 213_909_504, "blob_int8": 107_163_648}
+# the no-drop check against the dense layer runs on the first tokens of
+# layer 1's input: at a capacity factor of E (64) the flat send buffers
+# alone take 1.6 MB a token (25.8 GB for all 16,384)
+EP_NO_DROP_TOKENS = 512
+EP_DENSE_TOL = 0.1            # bf16, as tests/test_torch_moe.py
+# the int8 pod leg rounds each row to absmax / 127 steps before the
+# experts: the limit of tests/test_torch_dispatch.py's int8 mode against
+# the dense layer
+EP_INT8_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -1263,6 +1317,320 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
     return rows
 
 
+def deepseek_v2_lite_ep(seed: int) -> list:
+    """deepseek-v2-lite-16b at full width with its MoE layers over the
+    ranks of a stacked mesh (``EP_MESH``), in the direct, blob and blob
+    with int8 modes; returns the rows of the kernels line for the pack
+    and unpack kernels at each mode's stage-1 shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.blob_codec import kernel as codec_kernel
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_pack.ref import blob_pack_ref
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.blob_unpack.ref import blob_unpack_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.mesh import stacked_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_module
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import ServeConfig, make_prefill_step
+    from repro_torch.shuffle import api, binning, dispatch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before the EP phase: {held_gb} GB held")
+    arch = "deepseek-v2-lite-16b"
+    cfg = get_config(arch)
+    m = cfg.moe
+    d, E, k = cfg.d_model, m.num_experts, m.top_k
+    n_moe = cfg.num_layers - m.first_dense_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(lm.LM(cfg, device="cuda"), gen)
+    B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    mesh = stacked_mesh(**EP_MESH)
+    R = mesh.size
+    kernels = {kn.symbol: kn for kn in (
+        pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
+        codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
+
+    def shuffle(name, **kw):
+        mode, compress = EP_MODES[name]
+        return api.ShuffleConfig(mode=mode, compress_dcn=compress, **kw)
+
+    # every MoE call's diagnostics; the first call's parameters and input
+    captured, diags = {}, []
+    original = moe_module.moe_apply
+
+    def moe_recording(cfg_, p, x, **kwargs):
+        captured.setdefault("moe", (p, x))
+        out = original(cfg_, p, x, **kwargs)
+        diags.append(out[2])
+        return out
+
+    # the (kind, shape, dtype) of every pack and unpack over the stacked
+    # ranks, so that each kernels row can say how many of its launches
+    # ran at the shape it times
+    by_shape = {}
+    stacked_binning = dispatch.StackedBinning
+
+    class ShapeRecording(stacked_binning):
+        def scatter(self, rows, unit_row=None, bins=None):
+            out = super().scatter(rows, unit_row, bins)
+            key = ("pack", tuple(out.shape), str(out.dtype))
+            by_shape[key] = by_shape.get(key, 0) + 1
+            return out
+
+        def gather(self, buf):
+            key = ("unpack", tuple(buf.shape), str(buf.dtype))
+            by_shape[key] = by_shape.get(key, 0) + 1
+            return super().gather(buf)
+
+    def per_layer(records):
+        return {"expert_load": [r["expert_load"].tolist() for r in records],
+                "dropped": [int(r["dropped"]) for r in records],
+                "dcn_bytes": [float(r["dcn_bytes"]) for r in records]}
+
+    result = {"phase": "deepseek_v2_lite_ep", "arch": arch, "mesh": EP_MESH, "ranks": R,
+              "prefill_batch": B, "prefill_len": S, "capacity_factor": 1.25,
+              "exchange": "stacked ranks: each all-to-all is a copy on one card, "
+                          "not a network; dcn_bytes is counted, not measured",
+              "modes": {}}
+    shape_launches = {}
+    for name, (pack_n, unpack_n) in EP_LAUNCHES.items():
+        prefill = make_prefill_step(cfg, ServeConfig(shuffle=shuffle(name)), mesh)
+        moe_module.moe_apply = moe_recording
+        dispatch.StackedBinning = ShapeRecording
+        try:
+            diags.clear()
+            by_shape.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kn in kernels.values():
+                kn.launches = 0
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = {n: kn.launches for n, kn in kernels.items()}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            layers = per_layer(diags)
+        finally:
+            moe_module.moe_apply = original
+            dispatch.StackedBinning = stacked_binning
+        shape_launches[name] = dict(by_shape)
+        check(sum(n for (kind, *_), n in by_shape.items() if kind == "pack")
+              == launches[pack_kernel.PACK.symbol]
+              and sum(n for (kind, *_), n in by_shape.items() if kind == "unpack")
+              == launches[unpack_kernel.UNPACK.symbol],
+              f"{name}: every pack and unpack launch went through the stacked binning")
+        want = {flash_kernel.FLASH_WGMMA.symbol: cfg.num_layers,
+                pack_kernel.PACK.symbol: pack_n * n_moe,
+                unpack_kernel.UNPACK.symbol: unpack_n * n_moe}
+        check(launches == {s_: want.get(s_, 0) for s_ in kernels},
+              f"{name} prefill: {want} launches and no other kernel: {launches}")
+        total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+        check(total_gb - peak_gb >= MIN_HEADROOM_GB,
+              f"{name} prefill peak {peak_gb} GB leaves {MIN_HEADROOM_GB} GB of {total_gb}")
+        check(tuple(logits.shape) == (B, S, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+        check(all(bool(torch.isfinite(logits[i]).all()) for i in range(B)),
+              f"{name} prefill logits finite")
+        check(len(layers["dcn_bytes"]) == n_moe
+              and all(sum(ld) == B * S * k for ld in layers["expert_load"]),
+              f"{name}: every MoE layer routes every unit")
+        check(all(b == EP_DCN_BYTES[name] for b in layers["dcn_bytes"]),
+              f"{name} dcn_bytes a layer {set(layers['dcn_bytes'])} == {EP_DCN_BYTES[name]}")
+        del logits
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del out
+        result["modes"][name] = {
+            "launches": launches,
+            "launches_by_shape": {f"{kind} {list(shape)} {dtype}": n
+                                  for (kind, shape, dtype), n in by_shape.items()},
+            "prefill_first_s": first_s, "prefill_s": min(times),
+            "prefill_tokens_per_s": B * S / min(times), "prefill_peak_memory_gb": peak_gb,
+            "dropped_per_layer": layers["dropped"], "dcn_bytes_per_layer": layers["dcn_bytes"],
+            "expert_load_per_layer": layers["expert_load"]}
+    profile = profile_prefill(
+        make_prefill_step(cfg, ServeConfig(shuffle=shuffle("blob")), mesh), params, tokens,
+        "deepseek_v2_lite_ep_blob_prefill_profile", 25)
+
+    # layer 1 (the first MoE layer) on its captured input: through the
+    # kernels against the same layer through the index-based helpers,
+    # bit for bit, each mode's loads against the dense layer's, and the
+    # time of its routed part
+    p, z = captured["moe"]
+    xt = z.reshape(-1, d)
+    dense_load = moe_module.moe_apply(cfg, p, z, shuffle=api.ShuffleConfig())[2]["expert_load"]
+    weights = (p.router, p.we_gate, p.we_up, p.we_down)
+    layer = {"dense_routed_ms": time_ms(lambda: api.dense_moe_ffn(
+        xt, *weights, top_k=k, capacity_factor=m.capacity_factor,
+        compute_dtype=cfg.compute_dtype), 5)}
+    for name in EP_MODES:
+        got = moe_module.moe_apply(cfg, p, z, shuffle=shuffle(name), mesh=mesh)
+        dispatch.StackedBinning = binning.IndexedBinning
+        try:
+            want = moe_module.moe_apply(cfg, p, z, shuffle=shuffle(name), mesh=mesh)
+        finally:
+            dispatch.StackedBinning = stacked_binning
+        check(same_bits(got[0], want[0]) and same_bits(got[1], want[1])
+              and all(torch.equal(got[2][n], want[2][n]) for n in got[2]),
+              f"{name} layer 1 through the kernels == through the binning helpers")
+        check(torch.equal(got[2]["expert_load"], dense_load),
+              f"{name} layer 1's loads == the dense layer's")
+        del got, want
+        layer[f"{name}_routed_ms"] = time_ms(lambda: api.ep_moe_ffn(
+            xt, *weights, top_k=k, cfg=shuffle(name), mesh=mesh,
+            compute_dtype=cfg.compute_dtype), 5)
+    # at a capacity factor of E no unit drops in any mode, on the first
+    # EP_NO_DROP_TOKENS tokens (the buffers grow with the factor): flat
+    # and blob against the dense layer. The expert GEMM sees (E_loc,
+    # ep * cap, d) a rank (stacked: (E, ep * cap, d)) where the dense
+    # layer sees (E, cap, d), so the bf16 products round in other places
+    zn = xt[:EP_NO_DROP_TOKENS].reshape(1, EP_NO_DROP_TOKENS, d)
+    cfg_nd = dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=float(E)))
+    y_dense, _, dg_dense = moe_module.moe_apply(cfg_nd, p, zn, shuffle=api.ShuffleConfig())
+    no_drop = {}
+    for name in EP_MODES:
+        y, _, dg = moe_module.moe_apply(cfg, p, zn, shuffle=shuffle(
+            name, capacity_factor=float(E)), mesh=mesh)
+        err = max_abs_diff(y, y_dense)
+        check(int(dg["dropped"]) == 0 and torch.equal(dg["expert_load"],
+                                                      dg_dense["expert_load"]),
+              f"{name} drops no unit at a capacity factor of E")
+        tol = EP_INT8_TOL if name == "blob_int8" else EP_DENSE_TOL
+        check(err <= tol, f"{name} vs the dense layer: {err} > {tol}")
+        no_drop[name] = err
+    result.update(layer_1=layer, no_drop_tokens=EP_NO_DROP_TOKENS,
+                  no_drop_max_abs_err_vs_dense=no_drop, no_drop_tolerance=EP_DENSE_TOL,
+                  no_drop_tolerance_int8=EP_INT8_TOL,
+                  layer_bitwise_vs_index_based=True, loads_equal_dense=True)
+
+    # decode as repro_torch.launch.serve runs it, in blob mode (4 tokens a
+    # step, padded to the 32 ranks); against prefill of the same prompts
+    # at a capacity factor of E, where no unit drops in either
+    prompts = tokens[:, :PROMPT_LEN].contiguous()
+    blob = ServeConfig(shuffle=shuffle("blob"))
+    blob_gap = ServeConfig(shuffle=shuffle("blob", capacity_factor=float(E)))
+    moe_module.moe_apply = moe_recording
+    try:
+        diags.clear()
+        dec = generate(cfg, params, prompts, DECODER_NEW_TOKENS, scfg=blob, mesh=mesh)
+        decode_drops = sum(int(r["dropped"]) for r in diags)
+        diags.clear()
+        want = make_prefill_step(cfg, blob_gap, mesh)(params, {"tokens": prompts}).float()
+        dec_gap = generate(cfg, params, prompts, 1, scfg=blob_gap, mesh=mesh)
+        gap_drops = sum(int(r["dropped"]) for r in diags)
+    finally:
+        moe_module.moe_apply = original
+    check(bool(torch.isfinite(dec["logits"]).all()), "EP decode logits finite")
+    check(gap_drops == 0, f"no unit dropped in the prefill/decode check ({gap_drops})")
+    gap = float((dec_gap["logits"].float() - want).abs().max())
+    want_max = float(want.abs().max())
+    check(gap <= GAP_TOL_BF16 * want_max,
+          f"EP bf16 prefill vs decode logits: gap {gap}, largest logit {want_max}")
+    steps, decode_s = dec["logits"].shape[1], dec["seconds"]
+    del dec, dec_gap, want
+    result.update(decode_mode="blob", decode_batch=B, prompt_len=PROMPT_LEN,
+                  new_tokens=DECODER_NEW_TOKENS, decode_steps=steps, decode_s=decode_s,
+                  decode_ms_per_step=decode_s / steps * 1e3,
+                  decode_tokens_per_s=B * steps / decode_s, decode_dropped=decode_drops,
+                  prefill_decode_gap_bf16=gap, gap_tol_bf16=GAP_TOL_BF16 * want_max,
+                  gap_capacity_factor=float(E))
+    emit({**result, "ok": True})
+    emit(profile)
+
+    # the pack and unpack kernels at each mode's stage-1 shapes: flat
+    # scatters each rank's units into E lanes of its capacity, blob into
+    # M blobs; one launch over all ranks
+    sel_idx = api._route(xt, p.router, k, True)[1].view(R, -1)
+    T_loc, U = xt.shape[0] // R, sel_idx.shape[1]
+    unit_tok = torch.arange(T_loc, dtype=torch.int32, device="cuda").repeat_interleave(k)
+    src_rows = (torch.arange(R, dtype=torch.int32, device="cuda")[:, None] * T_loc
+                + unit_tok[None, :]).reshape(-1)
+    M_ = EP_MESH["model"]
+    rows = []
+    for name in EP_MODES:
+        if name == "direct":
+            keys, nb, cap = sel_idx, E, dispatch._cap(U / E, 1.25)
+        else:
+            E_loc = E // R
+            keys, nb, cap = (sel_idx // E_loc) % M_, M_, dispatch._cap(U / M_, 1.25)
+        bins = dispatch.StackedBinning(keys, nb, cap)
+        src = src_rows[bins.order]
+        indexed = binning.IndexedBinning(keys, nb, cap)
+        buf = bins.scatter(xt.view(R, T_loc, d), unit_tok)
+        want = indexed.scatter(xt.view(R, T_loc, d), unit_tok)
+        check(same_bits(buf, want), f"{name} stage-1 pack == scatter_to_bins")
+        pack_err = max_abs_diff(buf, want)
+        del want
+        flat_buf = buf.view(R * nb, cap, d)
+        y_units = bins.gather(buf)
+        y_want = indexed.gather(buf)
+        check(same_bits(y_units, y_want), f"{name} stage-1 unpack == gather_from_bins")
+        unpack_err = max_abs_diff(y_units, y_want)
+        del y_want
+        y_flat = y_units.view(R * U, d)
+        starts, counts, slot, valid = (bins.starts, bins.counts.reshape(-1),
+                                       bins.pack.slot, bins.pack.valid)
+        row_bytes = d * xt.element_size()
+        live = int(torch.clamp(counts, max=cap).sum())
+        n_valid = int(valid.sum())
+        pos = starts[:, None] + torch.arange(cap, device="cuda", dtype=torch.int32)
+        tok = src[torch.clamp(pos, 0, R * U - 1)].reshape(-1)
+        launches = result["modes"][name]["launches"]
+        path = f"deepseek_v2_lite_ep_{name}_prefill"
+        shape = {"ranks": R, "units_per_rank": U, "bins_per_rank": nb, "capacity": cap,
+                 "width": d, "dtype": "bfloat16"}
+        for kname, kern, run, plain, library, nbytes, err, replaces in (
+                ("moe_pack", pack_kernel.PACK,
+                 lambda: pack_kernel.launch(flat_buf, xt, src, starts, counts),
+                 lambda: blob_pack_ref(xt, src, starts, counts, capacity=cap),
+                 lambda: torch.index_select(xt, 0, tok),
+                 live * row_bytes + buf.numel() * buf.element_size() + 4 * (R * U + 2 * R * nb),
+                 pack_err, "src/repro/kernels/blob_pack/kernel.py:95"),
+                ("moe_unpack", unpack_kernel.UNPACK,
+                 lambda: unpack_kernel.launch(y_flat, flat_buf, slot, valid),
+                 lambda: blob_unpack_ref(flat_buf, slot, valid),
+                 lambda: torch.index_select(flat_buf.view(-1, d), 0, slot),
+                 n_valid * row_bytes + R * U * row_bytes + 5 * R * U,
+                 unpack_err, "src/repro/kernels/blob_unpack/kernel.py:79")):
+            bound_ms, bound_by = bound(0, nbytes)
+            ms = time_ms(run, TIMED_RUNS)
+            rows.append({
+                "name": kname, "route": "cuda", "symbol": kern.symbol, "config": arch,
+                "path": path, "timed_at": "stage 1" if name != "direct" else "send",
+                "shape": shape, "source": "src/repro_torch/kernels/csrc/blob_kernels.cu",
+                "replaces": replaces, "launches": launches[kern.symbol],
+                "launches_at_timed_shape": shape_launches[name].get(
+                    (kname.split("_")[1], tuple(buf.shape), str(buf.dtype)), 0),
+                "max_abs_err": err,
+                "ms": ms, "plain_ms": time_ms(plain, 5, warmup=1), "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": time_ms(library, TIMED_RUNS),
+                "library_call": "torch.index_select", "bytes": nbytes, "ops": 0,
+                "gb_s": nbytes / ms / 1e6})
+            check(rows[-1]["launches_at_timed_shape"] == n_moe,
+                  f"{name} {kname}: one launch a MoE layer at the timed shape "
+                  f"{tuple(buf.shape)}: {shape_launches[name]}")
+        torch.cuda.synchronize()
+        check(same_bits(buf, indexed.scatter(xt.view(R, T_loc, d), unit_tok))
+              and same_bits(y_units, indexed.gather(buf)),
+              f"{name} pack and unpack outputs unchanged by the timed launches")
+        del buf, y_units, flat_buf, y_flat, indexed
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1297,6 +1665,7 @@ def main(argv=None) -> int:
                           "flash_attention_moe")
     rows += decoder_serve(args.seed, "deepseek-v2-lite-16b", "deepseek_v2_lite_serve",
                           "flash_attention_mla")
+    rows += deepseek_v2_lite_ep(args.seed)
     rows += decoder_serve(args.seed, "gemma-2b", "gemma_2b_serve", "flash_attention_gemma")
     emit({"kernels": rows})
     torch.cuda.synchronize()

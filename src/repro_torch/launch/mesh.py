@@ -1,0 +1,99 @@
+"""Meshes of the port, the stand-in for ``repro.launch.mesh`` and
+``jax.sharding.Mesh``.
+
+A mesh names its axes major to minor and gives their sizes:
+``axis_names`` and ``shape`` (name -> size), as JAX's does. A rank is a
+point of the mesh; its linear index runs over the axes in that order.
+The expert-parallel dispatch exchanges tensors between the ranks through
+``repro_torch.shuffle.exchange``, by one of two back ends:
+
+* ``StackedMesh``: every rank in this process. A tensor carries a leading
+  axis of all the ranks, rank-major over the mesh's axes, so one card
+  runs the whole mesh and an all-to-all is a transpose.
+* ``ProcessGroupMesh``: one rank per process of the default
+  ``torch.distributed`` process group (gloo on the CPU, NCCL on a host of
+  several cards); the leading rank axis has size 1.
+
+Building a mesh touches no device and starts no process.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Axis names, major to minor, and their sizes."""
+    axis_names: tuple
+    sizes: tuple
+
+    def __post_init__(self):
+        if (len(self.axis_names) != len(self.sizes)
+                or len(set(self.axis_names)) != len(self.axis_names)
+                or any(not isinstance(s, int) or s < 1 for s in self.sizes)):
+            raise ValueError(f"a mesh needs distinct axis names and sizes >= 1, "
+                             f"got {self.axis_names} x {self.sizes}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedMesh(Mesh):
+    """Every rank of the mesh in this process (see the module docstring)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessGroupMesh(Mesh):
+    """One rank per process: the default process group's rank ``r`` is the
+    mesh's rank of linear index ``r``. ``groups`` caches the process
+    groups that the exchange makes, one set per tuple of axes."""
+    groups: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    @property
+    def coords(self) -> dict:
+        """This process's coordinate along each axis."""
+        import torch.distributed as dist
+
+        rank, out = dist.get_rank(), {}
+        for name, size in reversed(list(zip(self.axis_names, self.sizes))):
+            rank, out[name] = divmod(rank, size)
+        return out
+
+
+def stacked_mesh(**sizes: int) -> StackedMesh:
+    """A stacked mesh from named sizes, major to minor:
+    ``stacked_mesh(pod=2, data=1, model=16)``."""
+    return StackedMesh(tuple(sizes), tuple(sizes.values()))
+
+
+def process_group_mesh(**sizes: int) -> ProcessGroupMesh:
+    """A mesh over the default process group, which must be initialised
+    with as many processes as the mesh has ranks."""
+    import torch.distributed as dist
+
+    mesh = ProcessGroupMesh(tuple(sizes), tuple(sizes.values()))
+    if not dist.is_initialized() or dist.get_world_size() != mesh.size:
+        world = dist.get_world_size() if dist.is_initialized() else None
+        raise ValueError(f"a process-group mesh of {mesh.size} ranks needs a "
+                         f"default process group of that size, got {world}")
+    return mesh
+
+
+def make_test_mesh(*, devices: int = 8) -> StackedMesh:
+    """The JAX package's test mesh, stacked: 8 ranks -> (pod 2, data 2,
+    model 2), every axis non-trivial; 4 -> (data 2, model 2); else
+    (data devices)."""
+    if devices == 8:
+        return stacked_mesh(pod=2, data=2, model=2)
+    if devices == 4:
+        return stacked_mesh(data=2, model=2)
+    return stacked_mesh(data=devices)

@@ -17,9 +17,11 @@ import time
 import torch
 
 
-def generate(cfg, params, prompts: torch.Tensor, new_tokens: int) -> dict:
-    """Feed ``prompts`` (B, P) token by token through the decode step,
-    then generate ``new_tokens`` greedily. Returns the logits of every
+def generate(cfg, params, prompts: torch.Tensor, new_tokens: int, *,
+             scfg=None, mesh=None) -> dict:
+    """Feed ``prompts`` (B, P) token by token through the decode step of
+    ``scfg`` (default ``ServeConfig()``) on ``mesh``, then generate
+    ``new_tokens`` greedily. Returns the logits of every
     step (B, P + new_tokens - 1, V), the generated tokens (B, new_tokens)
     and the seconds the loop took (the device synchronised)."""
     from repro_torch.models import lm
@@ -28,7 +30,7 @@ def generate(cfg, params, prompts: torch.Tensor, new_tokens: int) -> dict:
     B, P = prompts.shape
     max_seq = P + new_tokens
     cache = lm.init_cache(cfg, B, max_seq, prompts.device)
-    serve_step = make_decode_step(cfg, ServeConfig())
+    serve_step = make_decode_step(cfg, scfg or ServeConfig(), mesh)
     nxt = prompts[:, 0]
     logits, generated = [], []
     t0 = time.perf_counter()

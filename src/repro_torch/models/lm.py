@@ -16,14 +16,17 @@ residual ``x + y - z``.
 
 Public surface:
   * ``LM(cfg, device="cuda")``                 - the parameters
-  * ``forward(cfg, params, batch, shuffle=DENSE)``  - (logits, aux) for prefill
+  * ``forward(cfg, params, batch, mesh=None, shuffle=DENSE)`` - (logits, aux) for prefill
   * ``cache_defs(cfg, batch, max_seq)``        - decode cache specs
   * ``init_cache(cfg, batch, max_seq, device="cuda")`` - a zero cache
-  * ``decode_step(cfg, params, cache, batch, shuffle=DENSE)`` - one-token serve step
+  * ``decode_step(cfg, params, cache, batch, mesh=None, shuffle=DENSE)``
+                                               - one-token serve step
 
-``shuffle`` selects the MoE dispatch; on one device every mode takes the
-dense dispatch. What the port does not run raises ``ValueError`` naming
-it: the ``encoder`` kind and the multimodal frontends, which come with
+``shuffle`` selects the MoE dispatch and ``mesh``
+(``repro_torch.launch.mesh``) the ranks it runs over; without a mesh
+every mode takes the dense dispatch. Only the MoE layer reads the mesh:
+everything else runs whole on the device. What the port does not run
+raises ``ValueError`` naming it: the ``encoder`` kind and the multimodal frontends, which come with
 later slices; a MoE layer or MLA outside the ``decoder`` kind, which the
 JAX package's ``ssm`` and ``hybrid`` kinds have no cache or layer for;
 and ``ssm.intra_bf16``: the JAX package then holds the intra-chunk
@@ -128,23 +131,24 @@ class LM(ParamModule):
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _ffn_apply(cfg: ModelConfig, p: Block, z: torch.Tensor, shuffle: ShuffleConfig):
+def _ffn_apply(cfg: ModelConfig, p: Block, z: torch.Tensor, shuffle: ShuffleConfig,
+               mesh=None):
     """The block's FFN on the normed residual z: (y, aux), the aux loss
     being the MoE layer's, or 0 for the MLP."""
     if isinstance(p.ffn, MOE.MoE):
-        y, aux, _ = MOE.moe_apply(cfg, p.ffn, z, shuffle=shuffle)
+        y, aux, _ = MOE.moe_apply(cfg, p.ffn, z, shuffle=shuffle, mesh=mesh)
         return y, aux
     return L.mlp_apply(cfg, p.ffn, z), torch.zeros((), dtype=torch.float32,
                                                    device=z.device)
 
 
 def _block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor,
-                 positions: torch.Tensor, *, shuffle: ShuffleConfig = DENSE):
+                 positions: torch.Tensor, *, mesh=None, shuffle: ShuffleConfig = DENSE):
     """Pre-norm transformer block. Returns (x, aux)."""
     attn = MLA.mla_apply if cfg.mla is not None else A.attention_apply
     h = attn(cfg, p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps), positions=positions)
     x = x + h
-    y, aux = _ffn_apply(cfg, p, L.rms_norm(x, p.ln2, cfg.norm_eps), shuffle)
+    y, aux = _ffn_apply(cfg, p, L.rms_norm(x, p.ln2, cfg.norm_eps), shuffle, mesh)
     return x + y, aux
 
 
@@ -159,7 +163,7 @@ def _shared_input(cfg: ModelConfig, params: LM, g: int, x, x0):
     return inp.to(cd) @ params.shared_in[g].to(cd)
 
 
-def forward(cfg: ModelConfig, params: LM, batch: dict, *,
+def forward(cfg: ModelConfig, params: LM, batch: dict, *, mesh=None,
             shuffle: ShuffleConfig = DENSE):
     """Full-sequence forward. batch {"tokens": (B, S)}. Returns
     (logits (B, S, V), aux_loss): the sum of the MoE layers' aux losses,
@@ -172,7 +176,7 @@ def forward(cfg: ModelConfig, params: LM, batch: dict, *,
     if cfg.kind == "decoder":
         auxes = []
         for blk in (*params.dense_blocks, *params.blocks):
-            x, a = _block_apply(cfg, blk, x, positions, shuffle=shuffle)
+            x, a = _block_apply(cfg, blk, x, positions, mesh=mesh, shuffle=shuffle)
             auxes.append(a)
         aux = torch.stack(auxes).sum()
     elif cfg.kind == "ssm":
@@ -186,7 +190,7 @@ def forward(cfg: ModelConfig, params: LM, batch: dict, *,
                 x = _ssm_block_apply(cfg, blk, x)
             z = _shared_input(cfg, params, g, x, x0)
             y, _ = _block_apply(cfg, params.shared_block, z, positions,
-                                shuffle=shuffle)
+                                mesh=mesh, shuffle=shuffle)
             x = x + y - z
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = L.unembed_apply(cfg, params.embed, x)
@@ -219,11 +223,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
 
 
 def _block_decode(cfg: ModelConfig, p: Block, x, cache: dict, pos: int, *,
-                  shuffle: ShuffleConfig = DENSE):
+                  mesh=None, shuffle: ShuffleConfig = DENSE):
     attn = MLA.mla_decode if cfg.mla is not None else A.attention_decode
     h, cache = attn(cfg, p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps), cache, pos)
     x = x + h
-    y, _ = _ffn_apply(cfg, p, L.rms_norm(x, p.ln2, cfg.norm_eps), shuffle)
+    y, _ = _ffn_apply(cfg, p, L.rms_norm(x, p.ln2, cfg.norm_eps), shuffle, mesh)
     return x + y, cache
 
 
@@ -238,7 +242,7 @@ def _ssm_block_decode(cfg: ModelConfig, p: SSMBlock, x, cache: dict, layer: int,
 
 
 def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict, *,
-                shuffle: ShuffleConfig = DENSE):
+                mesh=None, shuffle: ShuffleConfig = DENSE):
     """One-token decode. batch {"tokens": (B, 1), "pos": int}.
 
     Writes the new state of every layer into ``cache`` in place and
@@ -251,7 +255,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict, *,
         for stack in ("dense_blocks", "blocks"):
             for layer, blk in enumerate(getattr(params, stack)):
                 c = {name: t[layer] for name, t in cache[stack].items()}
-                x, _ = _block_decode(cfg, blk, x, c, pos, shuffle=shuffle)
+                x, _ = _block_decode(cfg, blk, x, c, pos, mesh=mesh, shuffle=shuffle)
     elif cfg.kind == "ssm":
         for layer, blk in enumerate(params.blocks):
             x = _ssm_block_decode(cfg, blk, x, cache, layer, pos)
@@ -264,7 +268,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict, *,
             z = _shared_input(cfg, params, g, x, x0)
             attn_cache = {name: t[g] for name, t in cache["shared"].items()}
             y, _ = _block_decode(cfg, params.shared_block, z, attn_cache, pos,
-                                 shuffle=shuffle)
+                                 mesh=mesh, shuffle=shuffle)
             x = x + y - z
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return L.unembed_apply(cfg, params.embed, x), cache

@@ -4,7 +4,10 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import ArraySpec, ModelConfig, ParamModule
@@ -36,7 +39,10 @@ class MoE(ParamModule):
 
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
               shuffle: ShuffleConfig, mesh=None):
-    """x: (B, S, d). Returns (y, aux_loss, diagnostics dict)."""
+    """x: (B, S, d). Returns (y, aux_loss, diagnostics dict). With a mesh
+    and a mode other than ``dense`` the routed experts run over the
+    mesh's ranks: the B * S tokens are padded to a multiple of the
+    token axes' product and the pad tokens masked out."""
     m = cfg.moe
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
@@ -51,9 +57,19 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
                 "dropped": torch.zeros((), dtype=torch.int32, device=x.device),
                 "dcn_bytes": torch.zeros((), dtype=torch.float32, device=x.device)}
     else:
+        ctx = None if shuffle.use_context_mesh else mesh
+        shuf = shuffle.resolve(ctx)
+        devs = math.prod(ctx.shape[a] for a in shuf.token_axes)
+        T = B * S
+        pad = (-T) % devs
+        if pad:
+            xt = F.pad(xt, (0, 0, 0, pad))
+        mask = (torch.arange(T + pad, device=x.device) < T).float()
         y, aux, dg = ep_moe_ffn(
             xt, p.router, p.we_gate, p.we_up, p.we_down, top_k=m.top_k,
-            cfg=shuffle, mesh=mesh, compute_dtype=cfg.compute_dtype)
+            cfg=shuf, mesh=mesh, compute_dtype=cfg.compute_dtype,
+            token_mask=mask)
+        y = y[:T]
         diag = {"expert_load": dg.expert_load, "dropped": dg.dropped,
                 "dcn_bytes": dg.dcn_bytes}
     y = y.reshape(B, S, d)

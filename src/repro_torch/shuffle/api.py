@@ -11,15 +11,23 @@ Data plane:
 Each runs where its tensors lie: on CUDA through the Hopper kernels, on
 the CPU through their plain versions.
 
-MoE FFN: ``dense_moe_ffn`` is the single-device capacity-based dispatch
-(the oracle of the dispatch modes). Its units are the records and its
-experts the destinations, so its scatter and gather are the Batcher's
-pack and the Debatcher's unpack (``blob_pack``, ``blob_unpack``): the
-kernels on CUDA tensors, the plain versions on CPU tensors, bit for bit
-the index-based ``binning.scatter_to_bins``/``gather_from_bins`` of the
-JAX package. ``ep_moe_ffn`` without a mesh takes it whatever the mode,
-as the JAX package does when it finds no mesh axes; the flat and blob
-dispatch over ``torch.distributed`` come with the dispatch slice.
+MoE FFN (``ShuffleConfig.mode``):
+  * ``dense``  the single-device capacity-based dispatch
+               (``dense_moe_ffn``, the oracle of the other modes);
+  * ``direct`` flat all-to-all over the whole EP domain (the "native
+               Kafka shuffling" baseline analogue);
+  * ``blob``   BlobShuffle: the hierarchical two-stage exchange with
+               pooled per-pod blob capacity and optional int8 on the
+               inter-pod leg.
+Units are the records and experts the destinations, so every scatter
+and gather is the Batcher's pack and the Debatcher's unpack
+(``blob_pack``, ``blob_unpack``): the kernels on CUDA tensors, the plain
+versions on CPU tensors, bit for bit the index-based
+``binning.scatter_to_bins``/``gather_from_bins`` of the JAX package.
+``ep_moe_ffn`` takes the dense dispatch without a mesh, whatever the
+mode, as the JAX package does when it finds no mesh axes; with a mesh
+(``repro_torch.launch.mesh``) it runs ``direct`` and ``blob`` over the
+mesh's ranks (``shuffle.dispatch``, ``shuffle.exchange``).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from repro_torch.kernels.blob_pack.ops import blob_pack, blob_pack_fused
 from repro_torch.kernels.blob_unpack.ops import blob_unpack, unpack_from_keys
 from repro_torch.shuffle import dispatch as D
 from repro_torch.shuffle.binning import pack_sorted, sorted_order
+from repro_torch.shuffle.exchange import for_mesh
 
 __all__ = ["ShuffleConfig", "blob_pack_fused", "unpack_from_keys",
            "compress_pack_fused", "unpack_decompress_fused",
@@ -45,11 +54,13 @@ __all__ = ["ShuffleConfig", "blob_pack_fused", "unpack_from_keys",
 @dataclasses.dataclass(frozen=True)
 class ShuffleConfig:
     """Fields and defaults of ``repro.shuffle.api.ShuffleConfig``. As in
-    the JAX package, ``moe_apply`` reads ``mode`` and ``norm_topk`` and
-    takes the capacity factor from the model's ``MoEConfig``;
-    ``ep_moe_ffn`` reads ``capacity_factor`` and ``norm_topk``. On one
-    device every mode takes the dense dispatch; the axes and
-    ``compress_dcn`` wait for the dispatch slice."""
+    the JAX package, ``moe_apply``'s dense path reads ``mode`` and
+    ``norm_topk`` and takes the capacity factor from the model's
+    ``MoEConfig``; with a mesh ``ep_moe_ffn`` reads every field,
+    ``capacity_factor`` included. ``use_context_mesh`` is set by the
+    train step of the JAX package; the port has no context mesh, so with
+    it set ``ep_moe_ffn`` finds no mesh axes and runs the dense
+    dispatch, as the JAX package does outside a mesh context."""
     mode: str = "dense"                  # dense | direct | blob
     token_axes: tuple = ("pod", "data", "model")
     expert_axes: tuple = ("pod", "model")  # EP domain, major -> minor
@@ -59,6 +70,13 @@ class ShuffleConfig:
     norm_topk: bool = True
     use_context_mesh: bool = False
 
+    def resolve(self, mesh) -> "ShuffleConfig":
+        """Drop axes that are absent from the mesh."""
+        names = set(_mesh_axis_names(mesh))
+        tok = tuple(a for a in self.token_axes if a in names)
+        exp = tuple(a for a in self.expert_axes if a in names)
+        return dataclasses.replace(self, token_axes=tok, expert_axes=exp)
+
     def pod_local(self) -> "ShuffleConfig":
         """EP restricted to intra-pod axes (for pod-manual DP regions)."""
         return dataclasses.replace(
@@ -67,6 +85,12 @@ class ShuffleConfig:
             expert_axes=tuple(a for a in self.expert_axes
                               if a != self.pod_axis),
             use_context_mesh=True)
+
+
+def _mesh_axis_names(mesh) -> tuple:
+    """The mesh's axis names; none without a mesh (the port has no
+    context mesh)."""
+    return mesh.axis_names if mesh is not None else ()
 
 
 def _expert_ffn(we_gate, we_up, we_down, compute_dtype):
@@ -149,24 +173,80 @@ def _pad_experts(w_router, we_gate, we_up, we_down, ep: int):
 def ep_moe_ffn(x, w_router, we_gate, we_up, we_down, *, top_k: int,
                cfg: ShuffleConfig, mesh=None, compute_dtype=torch.bfloat16,
                token_mask: Optional[torch.Tensor] = None):
-    """Expert-parallel MoE FFN. x: (T, d); expert weights (E, d, d_e) /
-    (E, d_e, d). Returns (y (T, d), aux_loss, DispatchDiagnostics).
+    """Expert-parallel MoE FFN over the ranks of ``mesh``.
 
-    Without a mesh there are no expert axes, so every mode takes
+    x: (T, d) global flat token array; T must divide over the token axes
+    (callers pad; ``token_mask`` zeroes the combine weights of pad
+    tokens). Expert weights: (E, d, d_e) / (E, d_e, d), split over
+    ``expert_axes``. Returns (y (T, d), aux_loss, DispatchDiagnostics),
+    the diagnostics summed over the whole mesh.
+
+    Without a mesh, or with no expert axis in it, every mode takes
     ``dense_moe_ffn``, and ``token_mask`` is not read (as in the JAX
-    package). A mesh or process group raises ``NotImplementedError``: the
-    flat and blob dispatch over ``torch.distributed`` are the dispatch
-    slice's."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"ep_moe_ffn over a mesh or process group ({type(mesh).__name__}) "
-            f"is the dispatch slice's (flat_dispatch_combine, "
-            f"blob_dispatch_combine over torch.distributed); the port runs "
-            f"mesh=None, the single-device dense dispatch")
-    y, aux, load = dense_moe_ffn(
-        x, w_router, we_gate, we_up, we_down, top_k=top_k,
-        capacity_factor=cfg.capacity_factor, norm_topk=cfg.norm_topk,
-        compute_dtype=compute_dtype)
-    return y, aux, D.DispatchDiagnostics(
-        torch.zeros((), dtype=torch.int32, device=x.device), load,
-        torch.zeros((), dtype=torch.float32, device=x.device))
+    package). ``blob`` runs ``direct`` unless the pod axis is in the EP
+    domain with a size above 1. A mesh of a type that no exchange runs
+    is refused by name."""
+    if cfg.use_context_mesh:
+        mesh = None
+    ex = for_mesh(mesh) if mesh is not None else None
+    cfg = cfg.resolve(mesh)
+    if cfg.mode == "dense" or not cfg.expert_axes:
+        y, aux, load = dense_moe_ffn(
+            x, w_router, we_gate, we_up, we_down, top_k=top_k,
+            capacity_factor=cfg.capacity_factor, norm_topk=cfg.norm_topk,
+            compute_dtype=compute_dtype)
+        return y, aux, D.DispatchDiagnostics(
+            torch.zeros((), dtype=torch.int32, device=x.device), load,
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+    w_router, we_gate, we_up, we_down, E_real = _pad_experts(
+        w_router, we_gate, we_up, we_down, ex.axis_size(cfg.expert_axes))
+    E = w_router.shape[1]
+    all_axes = mesh.axis_names
+    # the dispatch sums its diagnostics over the EP axes; the other axes
+    # are folded in here, so that every rank holds the global values
+    spectators = tuple(a for a in all_axes if a not in cfg.expert_axes)
+    has_pod = cfg.pod_axis in cfg.expert_axes and mesh.shape[cfg.pod_axis] > 1
+    mode = cfg.mode if (cfg.mode != "blob" or has_pod) else "direct"
+    inner_axes = tuple(a for a in cfg.expert_axes if a != cfg.pod_axis)
+
+    if token_mask is None:
+        token_mask = torch.ones((x.shape[0],), dtype=torch.float32,
+                                device=x.device)
+    x_loc = ex.shard(x, cfg.token_axes)                  # (R, T_loc, d)
+    mask_loc = ex.shard(token_mask, cfg.token_axes)      # (R, T_loc)
+    R, T_loc, d = x_loc.shape
+    # every rank's tokens in one product, as the dense path routes them
+    sel_w, sel_idx, probs = _route(x_loc.reshape(R * T_loc, d), w_router,
+                                   top_k, cfg.norm_topk, num_real=E_real)
+    sel_w = sel_w.view(R, T_loc, top_k) * mask_loc[..., None]
+    sel_idx, probs = sel_idx.view(R, T_loc, top_k), probs.view(R, T_loc, E)
+    weights = [ex.shard(w, cfg.expert_axes) for w in (we_gate, we_up, we_down)]
+    ffn = _expert_ffn(*(w.reshape(-1, *w.shape[2:]) for w in weights),
+                      compute_dtype)
+
+    def expert_fn(t):                       # (R, E_loc, C, d) in one product
+        return ffn(t.reshape(-1, *t.shape[2:])).view(*t.shape[:3], -1)
+
+    common = dict(exchange=ex, num_experts=E, capacity_factor=cfg.capacity_factor,
+                  d_out=d)
+    if mode == "blob":
+        y, diag = D.blob_dispatch_combine(
+            x_loc, sel_idx, sel_w, expert_fn, pod_axis=cfg.pod_axis,
+            inner_axes=inner_axes, compress_dcn=cfg.compress_dcn, **common)
+    else:
+        y, diag = D.flat_dispatch_combine(
+            x_loc, sel_idx, sel_w, expert_fn, ep_axes=cfg.expert_axes,
+            **common)
+    # fold the spectator axes into the global diagnostics and aux loss
+    n_tok = ex.psum(mask_loc.sum(dim=1), all_axes)[:, None]
+    psum_probs = ex.psum((probs * mask_loc[..., None]).sum(dim=1), all_axes)
+    load = ex.psum(diag.expert_load, spectators)
+    dropped = ex.psum(diag.dropped, spectators)
+    dcn = ex.psum(diag.dcn_bytes, spectators)
+    f = load.float() / torch.clamp(n_tok * top_k, min=1)
+    pbar = psum_probs / torch.clamp(n_tok, min=1)
+    aux = E_real * torch.sum(f[:, :E_real] * pbar[:, :E_real], dim=1)
+    # every rank holds the same diagnostics: this process's first rank's
+    return (ex.unshard(y, cfg.token_axes), aux[0],
+            D.DispatchDiagnostics(dropped[0], load[0, :E_real], dcn[0]))

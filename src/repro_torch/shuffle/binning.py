@@ -80,3 +80,37 @@ def gather_from_bins(buf: torch.Tensor, pack: Packing) -> torch.Tensor:
 def dropped_units(pack: Packing, capacity: int) -> torch.Tensor:
     """Overflow count derived from the notification metadata (int32)."""
     return torch.clamp(pack.counts - capacity, min=0).sum(dtype=torch.int32)
+
+
+class IndexedBinning:
+    """Every rank's units binned rank by rank through the index-based
+    helpers above: the plain version of ``dispatch.StackedBinning``, with
+    its interface, against which the dispatch's one-launch packs and
+    unpacks are held bit for bit.
+
+    keys (R, U): rank r's unit u goes to bin keys[r, u] of ``num_bins``,
+    each of ``capacity`` slots."""
+
+    def __init__(self, keys: torch.Tensor, num_bins: int, capacity: int):
+        self.packs = [bin_pack(k, num_bins, capacity) for k in keys]
+        self.counts = torch.stack([p.counts for p in self.packs])
+        self.num_bins, self.capacity = num_bins, capacity
+
+    def scatter(self, rows: torch.Tensor, unit_row: torch.Tensor | None = None,
+                bins: int | None = None) -> torch.Tensor:
+        """Each rank's ``scatter_to_bins(rows[r][unit_row])[:bins]``."""
+        return torch.stack([
+            scatter_to_bins(r if unit_row is None else r[unit_row], p,
+                            self.num_bins, self.capacity)[:bins]
+            for r, p in zip(rows, self.packs)])
+
+    def gather(self, buf: torch.Tensor) -> torch.Tensor:
+        """Each rank's ``gather_from_bins(buf[r])``."""
+        return torch.stack([gather_from_bins(b, p)
+                            for b, p in zip(buf, self.packs)])
+
+    def dropped(self, bins: int | None = None) -> torch.Tensor:
+        """(R,) int32: units over capacity in each rank's first ``bins``
+        bins (default all)."""
+        over = self.counts[:, :bins] - self.capacity
+        return torch.clamp(over, min=0).sum(dim=1, dtype=torch.int32)

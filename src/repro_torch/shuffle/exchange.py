@@ -1,0 +1,211 @@
+"""Collectives between the ranks of a mesh, the port's stand-in for
+``shard_map`` with ``lax.all_to_all`` and ``lax.psum``.
+
+``for_mesh(mesh)`` gives the mesh's back end. Both take and return
+tensors with a leading axis of this process's ranks (``ranks`` of them),
+rank-major over the mesh's axes, and offer:
+
+  axis_size(axes)       the product of the named axes' sizes
+  all_to_all(x, axes)   ``lax.all_to_all(x, axes, 0, 0, tiled=False)``:
+                        x (ranks, n, ...) with n = axis_size(axes); rank
+                        c's chunk j goes to the rank whose coordinates
+                        along ``axes`` (major to minor in the order given)
+                        have linear index j and whose other coordinates
+                        are c's, and lands there at c's index
+  psum(x, axes)         the sum over the ranks that differ only along
+                        ``axes``, on each of them
+  shard(x, axes)        a global (N, ...) array -> each rank's block of
+                        ``PartitionSpec(axes)``: (ranks, N / n, ...)
+  unshard(x, axes)      the inverse: the global array, read from the ranks
+                        at coordinate 0 of the axes not in ``axes``
+
+``Stacked`` (a ``StackedMesh``, every rank in this process) moves tensors
+by transposing rank axes; ``ProcessGroups`` (a ``ProcessGroupMesh``, one
+rank a process) by ``torch.distributed``, with one group per tuple of
+axes and coordinates of the other axes. ``all_gather`` comes with the
+gradient sync.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import Mesh, ProcessGroupMesh, StackedMesh
+
+
+def _permuted(v: torch.Tensor, src: tuple, dst: tuple) -> torch.Tensor:
+    """Permute v's leading dims, one per axis of ``src``, into ``dst``
+    order."""
+    return v.permute(*[src.index(a) for a in dst], *range(len(src), v.dim()))
+
+
+def for_mesh(mesh):
+    """The exchange back end of ``mesh``."""
+    if isinstance(mesh, StackedMesh):
+        return Stacked(mesh)
+    if isinstance(mesh, ProcessGroupMesh):
+        return ProcessGroups(mesh)
+    raise TypeError(f"no exchange for a mesh of type {type(mesh).__name__}; "
+                    f"the port runs StackedMesh and ProcessGroupMesh "
+                    f"(repro_torch.launch.mesh)")
+
+
+class _Exchange:
+    ranks: int
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def axis_size(self, axes) -> int:
+        shape = self.mesh.shape
+        unknown = [a for a in axes if a not in shape]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not in the mesh's "
+                             f"{self.mesh.axis_names}")
+        return math.prod(shape[a] for a in axes)
+
+    def _reorder(self, t: torch.Tensor, src: tuple, dst: tuple) -> torch.Tensor:
+        """t's first dim indexes the points of ``src`` (linear, major to
+        minor); return it indexed over the same axes in ``dst`` order."""
+        if src == dst:
+            return t
+        v = t.reshape(*[self.mesh.shape[a] for a in src], *t.shape[1:])
+        return _permuted(v, src, dst).reshape(t.shape)
+
+    def _in_mesh_order(self, axes) -> tuple:
+        return tuple(a for a in self.mesh.axis_names if a in axes)
+
+    def _check_split(self, x: torch.Tensor, axes) -> None:
+        n = self.axis_size(axes)
+        if x.dim() < 2 or x.shape[0] != self.ranks or x.shape[1] != n:
+            raise ValueError(f"an all-to-all over {tuple(axes)} takes "
+                             f"({self.ranks}, {n}, ...), got {tuple(x.shape)}")
+
+
+class Stacked(_Exchange):
+    """Every rank in this process: ``ranks`` is the mesh's size."""
+
+    def __init__(self, mesh: StackedMesh):
+        super().__init__(mesh)
+        self.ranks = mesh.size
+
+    def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = tuple(axes)
+        self._check_split(x, axes)
+        names, n = self.mesh.axis_names, len(self.mesh.axis_names)
+        v = x.reshape(*self.mesh.sizes, *[self.mesh.shape[a] for a in axes],
+                      *x.shape[2:])
+        # swap each named rank axis with the chunk axis of the same name
+        perm = list(range(v.dim()))
+        for j, a in enumerate(axes):
+            i = names.index(a)
+            perm[i], perm[n + j] = n + j, i
+        return v.permute(perm).reshape(x.shape)
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        dims = [self.mesh.axis_names.index(a) for a in axes]
+        if not dims:
+            return x
+        v = x.reshape(*self.mesh.sizes, *x.shape[1:])
+        total = v.sum(dim=dims, keepdim=True, dtype=x.dtype)
+        return total.expand(v.shape).reshape(x.shape)
+
+    def shard(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = tuple(axes)
+        n = self.axis_size(axes)
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {axes} "
+                             f"({n} blocks)")
+        v = x.reshape(*[self.mesh.shape[a] for a in axes], x.shape[0] // n,
+                      *x.shape[1:])
+        v = _permuted(v, axes, self._in_mesh_order(axes))
+        rest = v.shape[len(axes):]
+        v = v.reshape(*[self.mesh.shape[a] if a in axes else 1
+                        for a in self.mesh.axis_names], *rest)
+        return v.expand(*self.mesh.sizes, *rest).reshape(self.ranks, *rest)
+
+    def unshard(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = tuple(axes)
+        v = x.reshape(*self.mesh.sizes, *x.shape[1:])
+        v = v[tuple(slice(None) if a in axes else 0 for a in self.mesh.axis_names)]
+        v = _permuted(v, self._in_mesh_order(axes), axes)
+        return v.reshape(-1, *x.shape[2:])
+
+
+class ProcessGroups(_Exchange):
+    """One rank a process over ``torch.distributed``: ``ranks`` is 1."""
+    ranks = 1
+
+    def __init__(self, mesh: ProcessGroupMesh):
+        super().__init__(mesh)
+        self.coords = mesh.coords
+
+    def _group(self, axes):
+        """This process's group over ``axes``: the ranks that share its
+        coordinates along the other axes, in mesh order. Every process
+        makes every group of a tuple of axes the first time any uses it,
+        as ``torch.distributed`` requires."""
+        import torch.distributed as dist
+
+        key = self._in_mesh_order(axes)
+        group = self.mesh.groups.get(key)
+        if group is None:
+            names = self.mesh.axis_names
+            ranks = np.arange(self.mesh.size).reshape(self.mesh.sizes)
+            inner = [names.index(a) for a in key]
+            outer = [i for i in range(len(names)) if i not in inner]
+            lists = np.transpose(ranks, outer + inner).reshape(
+                -1, self.axis_size(key)).tolist()
+            group, _ = dist.new_subgroups_by_enumeration(lists)
+            self.mesh.groups[key] = group
+        return group
+
+    def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
+        import torch.distributed as dist
+
+        axes = tuple(axes)
+        self._check_split(x, axes)
+        key = self._in_mesh_order(axes)
+        send = self._reorder(x[0], axes, key).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self._group(axes))
+        return self._reorder(recv, key, axes)[None]
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        import torch.distributed as dist
+
+        if not tuple(axes):
+            return x
+        out = x.clone()
+        dist.all_reduce(out, group=self._group(axes))
+        return out
+
+    def _block(self, axes) -> int:
+        b = 0
+        for a in axes:
+            b = b * self.mesh.shape[a] + self.coords[a]
+        return b
+
+    def shard(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = tuple(axes)
+        n = self.axis_size(axes)
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {axes} "
+                             f"({n} blocks)")
+        b = self._block(axes)
+        return x.reshape(n, -1, *x.shape[1:])[b:b + 1]
+
+    def unshard(self, x: torch.Tensor, axes) -> torch.Tensor:
+        import torch.distributed as dist
+
+        axes = tuple(axes)
+        if not axes:
+            return x[0]
+        key = self._in_mesh_order(axes)
+        parts = [torch.empty_like(x[0]) for _ in range(self.axis_size(axes))]
+        dist.all_gather(parts, x[0].contiguous(), group=self._group(axes))
+        return self._reorder(torch.stack(parts), key, axes).reshape(
+            -1, *x.shape[2:])

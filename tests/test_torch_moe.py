@@ -262,11 +262,16 @@ def test_ep_moe_ffn_without_a_mesh_is_the_dense_dispatch(layer, mode):
     assert dg.dropped.dtype == torch.int32 and dg.dcn_bytes.dtype == torch.float32
 
 
-def test_ep_moe_ffn_refuses_a_mesh_naming_the_dispatch_slice(layer):
+def test_ep_moe_ffn_refuses_an_unknown_mesh_type_by_name(layer):
     _, p = layer
     _, x = _x(8, 64, "float32")
-    for mesh in (object(), ("pod", "model")):
-        with pytest.raises(NotImplementedError, match="dispatch slice"):
+
+    class Grid:                 # a mesh's fields, but no exchange runs it
+        axis_names = ("pod", "model")
+        shape = {"pod": 2, "model": 2}
+
+    for mesh in (object(), ("pod", "model"), Grid()):
+        with pytest.raises(TypeError, match=type(mesh).__name__):
             api.ep_moe_ffn(x, *_weights(p), top_k=2, cfg=api.ShuffleConfig(mode="blob"),
                            mesh=mesh)
 
