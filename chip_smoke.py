@@ -102,7 +102,44 @@
    tokens, each step's 4 tokens padded to the 32 ranks), timed, and
    within a tenth of the largest logit of prefill at a capacity factor
    of E.
-8. Prints one ``kernels`` line: per kernel its launches on its main path
+8. ``kernel_grads``: each autograd Function's gradients on the card
+   against torch autograd through its plain version, on the same seeded
+   inputs, each case counting its launches: flash attention at B 1, S
+   4,096, causal, bf16, at each serving head dim (``GRAD_FLASH_SHAPES``;
+   dq, dk, dv within ``GRAD_FLASH_TOL`` relative Frobenius error; one
+   wgmma launch, the backward plain torch); the SSD chunk at Zamba2's
+   first Mamba2 layer (B 1, S 4,096, 80 heads of 64, N 64, chunks of
+   256; within ``GRAD_SSD_TOL`` of the largest entry; one tensor-core
+   launch), and ``ssd_scan_op``'s gradients against ``ssd_chunked``'s;
+   pack and unpack at deepseek-v2-lite's MoE shape (98,304 units of
+   2,048 bf16, 64 bins of 1,920, skewed keys): unpack's backward bit for
+   bit, pack's bit for bit where ``order`` is a permutation and within
+   one bf16 rounding of an f32 sum where each token's row repeats
+   (top-6), each backward launching the other kernel once.
+9. ``deepseek_v2_lite_train``: deepseek-v2-lite-16b at published widths
+   with 3 of its 27 layers (``TRAIN_LAYERS``: the dense layer 0 and two
+   MoE layers, 1.670 G f32 parameters drawn on the card), 4 x 4,096
+   tokens in 2 microbatches, remat ``full``, bf16 compute, capacity
+   factor 1.25. (a) 8 plain steps on one batch (dense dispatch): finite
+   losses and gradient norms, the last loss below the first, 12 flash,
+   12 pack and 12 unpack launches a step and no other kernel
+   (``TRAIN_*_LAUNCHES``), ``MIN_HEADROOM_GB`` free; one step under
+   ``torch.profiler``. (b) Each pod's gradients for its half of the
+   batch (``EP_MESH``'s 2 pods), synced by
+   ``grad_sync.blob_allreduce_grads``: exact within ``SYNC_EXACT_TOL``
+   of the plain mean, int8 within ``SYNC_INT8_TOL`` of the largest
+   entry; the blobs and the bytes each pod sends. (c) BlobShuffle's
+   training configuration, 3 steps: the ``blob_int8`` gradient sync with
+   the shuffle ``blob`` made pod-local; as in the JAX package's train
+   step, the pod region's loss gets no mesh, so every MoE call takes the
+   dense dispatch (checked); twice the launches of (a), every MoE call's
+   ``dcn_bytes`` 0. Then the kernels at one microbatch's shapes, with
+   the plain flash backward's time and its share of a plain step; the
+   pack and unpack rows give their launches a step counted in (a) and
+   those at the timed shape (``launches_at_timed_shape``: the forward's
+   and the recompute's, 8; unpack's 12 also count pack's backward, an
+   unpack of the same shape; unpack's backward is a pack at another).
+10. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
@@ -127,8 +164,11 @@
    240), ``path`` ``deepseek_v2_lite_ep_<mode>_prefill``, with the
    kernel's launches in that prefill (``launches``, all shapes) and
    those at the timed shape (``launches_at_timed_shape``, one a MoE
-   layer).
-9. Ends with ``{"ok": true, "device": {...}}``.
+   layer). The training rows (``path`` ``deepseek_v2_lite_train``: flash,
+   pack and unpack at one microbatch's shapes, with their launches a
+   step and, for pack and unpack, those at the timed shape) and the SSD
+   chunk's (``path`` ``kernel_grads``) follow.
+11. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -205,6 +245,32 @@ EP_DENSE_TOL = 0.1            # bf16, as tests/test_torch_moe.py
 # experts: the limit of tests/test_torch_dispatch.py's int8 mode against
 # the dense layer
 EP_INT8_TOL = 5e-2
+# gradients of the autograd Functions against autograd of their plain
+# versions (kernel_grads): flash dq, dk, dv in bf16 by relative Frobenius
+# error, at B 1, S 4,096 and each serving head dim (D, heads, kv heads);
+# the SSD chunk's by the largest difference over the largest entry
+GRAD_FLASH_SHAPES = [(80, 32, 32), (128, 16, 16), (192, 16, 16), (256, 8, 1)]
+GRAD_FLASH_TOL = 1e-2
+GRAD_SSD_TOL = 1e-4
+# deepseek-v2-lite-16b trained at published widths with 3 of its 27
+# layers (the dense layer 0 and two MoE layers: 1.670 G f32 parameters;
+# the 27 layers' parameters, gradients and AdamW moments take 251 GB):
+# 4 x 4,096 tokens in 2 microbatches, remat full, bf16 compute
+TRAIN_LAYERS = 3
+TRAIN_STEPS = 8
+TRAIN_BLOB_STEPS = 3
+TRAIN_MICROBATCHES = 2
+# launches a step: flash once a layer in the forward and once in its
+# recompute (the backward is plain torch); pack and unpack once a MoE
+# layer in the forward, once in the recompute, and once as the other's
+# backward
+TRAIN_FLASH_LAUNCHES = TRAIN_LAYERS * TRAIN_MICROBATCHES * 2
+TRAIN_PACK_LAUNCHES = (TRAIN_LAYERS - 1) * TRAIN_MICROBATCHES * 3
+# the gradient sync against the plain mean of two pods' gradients: exact
+# by the largest difference over the largest entry, int8 by the bound of
+# the JAX package's test_grad_sync_exact_and_compressed
+SYNC_EXACT_TOL = 1e-6
+SYNC_INT8_TOL = 0.02
 
 
 def emit(obj) -> None:
@@ -764,12 +830,18 @@ def profile_prefill(prefill, params, tokens, phase="zamba2_prefill_profile",
                     top_n=15) -> dict:
     """One more prefill under ``torch.profiler``: the device time by
     kernel, and the share of the wall time the device was idle."""
+    return profile_call(lambda: prefill(params, {"tokens": tokens}), phase, top_n)
+
+
+def profile_call(fn, phase: str, top_n: int = 15) -> dict:
+    """``fn()`` under ``torch.profiler``: the device time by kernel, and
+    the share of the wall time the device was idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prefill(params, {"tokens": tokens})
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -1631,6 +1703,486 @@ def deepseek_v2_lite_ep(seed: int) -> list:
     return rows
 
 
+
+def rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference over the largest entry, in f32."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def kernel_grads(seed: int) -> list:
+    """Each autograd Function's gradients on the card against torch
+    autograd through its plain version, on the same seeded inputs, with
+    the launches of each case; returns the kernels row of the SSD chunk
+    (whose training path is the Function at Zamba2's shape)."""
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_pack.ops import blob_pack
+    from repro_torch.kernels.blob_pack.ref import blob_pack_ref
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.blob_unpack.ops import blob_unpack
+    from repro_torch.kernels.blob_unpack.ref import blob_unpack_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ops import SSDChunk, ssd_chunked, ssd_scan_op
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    from repro_torch.shuffle.binning import bin_pack, sorted_order
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before kernel_grads: {held_gb} GB held")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kernels = (pack_kernel.PACK, unpack_kernel.UNPACK, *flash_kernel.KERNELS,
+               *ssd_kernel.KERNELS)
+    result = {"phase": "kernel_grads", "flash": {}, "tolerance": {
+        "flash_rel_fro_bf16": GRAD_FLASH_TOL, "ssd_rel_max": GRAD_SSD_TOL,
+        "ssd_op_rel_fro_bf16": GRAD_FLASH_TOL}}
+
+    def grads(fn, leaves, dout):
+        """(outputs, gradients, each kernel's launches in forward and backward)."""
+        def run():
+            out = fn(*leaves)
+            return out, torch.autograd.grad(out, leaves, dout)
+        (out, g), launches = launches_of(kernels, run)
+        return out, g, {k: n for k, n in launches.items() if n}
+
+    # flash at B 1, S 4,096, causal, each serving head dim: bf16 q, k, v
+    for D, H, KVH in GRAD_FLASH_SHAPES:
+        q, k, v, dout = (torch.randn((1, PREFILL_LEN, h, D), generator=gen, device="cuda")
+                         .to(torch.bfloat16) for h in (H, KVH, KVH, H))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        _, got, launches = grads(lambda a, b, c: flash_attention_op(a, b, c, causal=True),
+                                 leaves, dout)
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(flash_ref(*ref, causal=True), ref, dout)
+        errs = {n: rel_fro(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        check(all(e <= GRAD_FLASH_TOL for e in errs.values()),
+              f"flash D {D} gradients within {GRAD_FLASH_TOL}: {errs}")
+        check(launches == {flash_kernel.FLASH_WGMMA.symbol: 1},
+              f"flash D {D}: the forward's one wgmma launch, a plain backward: {launches}")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_op(*leaves, causal=True)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), 3,
+                         warmup=1)
+        result["flash"][f"D{D}"] = {"heads": H, "kv_heads": KVH, "rel_fro": errs,
+                                    "launches": launches, "backward_ms": bwd_ms}
+        del q, k, v, dout, leaves, ref, got, want, out
+
+    # the SSD chunk at Zamba2's first Mamba2 layer (B 1, S 4,096, 80 heads
+    # of 64, N 64, chunks of 256), bf16 as the layer feeds it
+    H, P_, N, Q = 80, 64, 64, 256
+    x, dt, A, Bm, Cm = ssd_inputs(gen, 1, PREFILL_LEN, H, P_, 1, N, torch.bfloat16)
+    nc = PREFILL_LEN // Q
+    chunked = (x.reshape(1, nc, Q, H, P_), dt.reshape(1, nc, Q, H), A,
+               Bm.reshape(1, nc, Q, 1, N), Cm.reshape(1, nc, Q, 1, N))
+    douts = [torch.randn(o.shape, generator=gen, device="cuda")
+             for o in ssd_chunk_ref(*chunked)]
+    leaves = [t.clone().requires_grad_() for t in chunked]
+    outs, got, launches = grads(SSDChunk.apply, leaves, douts)
+    ref = [t.clone().requires_grad_() for t in chunked]
+    want = torch.autograd.grad(ssd_chunk_ref(*ref), ref, douts)
+    chunk_errs = {n: rel_max(g, w) for n, g, w in zip(("x", "dt", "A", "B", "C"), got, want)}
+    check(all(e <= GRAD_SSD_TOL for e in chunk_errs.values()),
+          f"SSD chunk gradients within {GRAD_SSD_TOL}: {chunk_errs}")
+    check(launches == {ssd_kernel.SSD_CHUNK_TC.symbol: 1},
+          f"SSD chunk: the forward's one tensor-core launch, a plain backward: {launches}")
+    ssd_launches = launches[ssd_kernel.SSD_CHUNK_TC.symbol]
+    # the whole op (kernel forward, recurrence) against the plain chunked scan
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y, st = ssd_scan_op(*leaves, chunk=Q)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    got = torch.autograd.grad((y.float() * dy.float()).sum() + st.sum(), leaves)
+    ref = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y2, st2 = ssd_chunked(*ref, chunk=Q)
+    want = torch.autograd.grad((y2.float() * dy.float()).sum() + st2.sum(), ref)
+    op_errs = {n: rel_fro(g, w) for n, g, w in zip(("x", "dt", "A", "B", "C"), got, want)}
+    check(all(e <= GRAD_FLASH_TOL for e in op_errs.values()),
+          f"ssd_scan_op gradients against ssd_chunked: {op_errs}")
+    leaves = [t.detach().requires_grad_() for t in chunked]
+    outs = SSDChunk.apply(*leaves)
+    ssd_bwd_ms = time_ms(lambda: torch.autograd.grad(outs, leaves, douts, retain_graph=True),
+                         5, warmup=1)
+    bufs = tuple(torch.empty_like(o) for o in outs)
+    ssd_ms = time_ms(lambda: ssd_kernel.launch(bufs, *chunked), TIMED_RUNS)
+    ssd_plain_ms = time_ms(lambda: ssd_chunk_ref(*chunked), 5, warmup=1)
+    # as the zamba2 phase counts them: the causal half of the two Q x Q
+    # products, and the state product
+    ssd_flops = nc * H * (2.0 * (N + P_) * Q * (Q + 1) / 2 + 2.0 * P_ * N * Q)
+    ssd_bytes = sum(t.numel() * t.element_size() for t in (*chunked, *bufs))
+    ssd_bound, ssd_by = bound(ssd_flops, ssd_bytes)
+    result["ssd_chunk"] = {"shape": [1, PREFILL_LEN, H, P_, 1, N, Q], "chunk_rel_max": chunk_errs,
+                           "op_rel_fro": op_errs, "launches": launches,
+                           "backward_ms": ssd_bwd_ms}
+    ssd_row = {"name": "ssd_chunk_grads", "route": "cuda",
+               "symbol": ssd_kernel.SSD_CHUNK_TC.symbol, "config": "zamba2-2.7b",
+               "path": "kernel_grads", "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+               "replaces": "src/repro/kernels/ssd_scan/kernel.py:50",
+               "launches": ssd_launches, "max_abs_err": max(chunk_errs.values()),
+               "ms": ssd_ms, "plain_ms": ssd_plain_ms, "bound_ms": ssd_bound,
+               "bound_by": ssd_by, "library_ms": None, "backward_ms": ssd_bwd_ms,
+               "flops": ssd_flops, "bytes": ssd_bytes}
+    del x, dt, A, Bm, Cm, chunked, douts, leaves, outs, bufs, got, want, ref, y, y2
+
+    # pack and unpack at deepseek-v2-lite's MoE shape: 16,384 tokens,
+    # top-6, 98,304 units of 2,048 bf16 into 64 bins of 1,920; skewed keys
+    # so that some bins overflow
+    T, k, E, d = DECODER_PREFILL_BATCH * PREFILL_LEN, 6, 64, 2048
+    cap = 1920
+    p = torch.linspace(1.5, 0.5, E, device="cuda")
+    keys = torch.multinomial(p / p.sum(), T * k, replacement=True,
+                             generator=gen).to(torch.int32)
+    order, starts, counts = sorted_order(keys, E)
+    unit_tok = torch.arange(T, dtype=torch.int32, device="cuda").repeat_interleave(k)
+    g_units = torch.randn((T * k, d), generator=gen, device="cuda").to(torch.bfloat16)
+    dbuf = torch.randn((E, cap, d), generator=gen, device="cuda").to(torch.bfloat16)
+    pack_result = {"units": T * k, "bins": E, "capacity": cap, "width": d,
+                   "dropped": int(torch.clamp(counts - cap, min=0).sum())}
+    # unpack's backward (a pack), bit for bit
+    pk = bin_pack(keys, E, cap)
+    buf = torch.randn((E, cap, d), generator=gen, device="cuda").to(torch.bfloat16)
+    leaf = buf.clone().requires_grad_()
+    _, (got,), launches = grads(lambda b: blob_unpack(b, pk.slot, pk.valid), [leaf], g_units)
+    ref = buf.clone().requires_grad_()
+    want, = torch.autograd.grad(blob_unpack_ref(ref, pk.slot, pk.valid), ref, g_units)
+    check(same_bits(got, want), "unpack's backward == autograd of blob_unpack_ref")
+    check(launches == {pack_kernel.PACK.symbol: 1, unpack_kernel.UNPACK.symbol: 1},
+          f"unpack forward and its backward's one pack: {launches}")
+    pack_result["unpack_backward_launches"] = launches
+    # pack's backward (an unpack) where order is a permutation, bit for bit
+    x = torch.randn((T * k, d), generator=gen, device="cuda").to(torch.bfloat16)
+    leaf = x.clone().requires_grad_()
+    _, (got,), launches = grads(lambda a: blob_pack(a, order, starts, counts, capacity=cap),
+                                [leaf], dbuf)
+    ref = x.clone().requires_grad_()
+    want, = torch.autograd.grad(blob_pack_ref(ref, order, starts, counts, capacity=cap), ref,
+                                dbuf)
+    check(same_bits(got, want), "pack's backward (a permutation) == autograd of blob_pack_ref")
+    check(launches == {pack_kernel.PACK.symbol: 1, unpack_kernel.UNPACK.symbol: 1},
+          f"pack forward and its backward's one unpack: {launches}")
+    pack_result["pack_backward_launches"] = launches
+    # the MoE scatter: each token's row read top_k times; the sum within
+    # one bf16 rounding of an f32 sum of the same units
+    tok = unit_tok[order]
+    xt = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    leaf = xt.clone().requires_grad_()
+    _, (got,), _ = grads(lambda a: blob_pack(a, tok, starts, counts, capacity=cap), [leaf], dbuf)
+    ref = xt.float().requires_grad_()
+    want, = torch.autograd.grad(blob_pack_ref(ref, tok, starts, counts, capacity=cap), ref,
+                                dbuf.float())
+    step = torch.finfo(torch.bfloat16).eps * want.abs()       # one bf16 step at |want|
+    over = float(((got.float() - want).abs() - step).max())
+    check(over <= 0.0, f"pack's backward with repeated rows within bf16 rounding: {over}")
+    pack_result["repeated_rows_max_abs_err"] = float((got.float() - want).abs().max())
+    result["pack_unpack"] = pack_result
+    emit({**result, "ok": True})
+    del keys, order, starts, counts, unit_tok, g_units, dbuf, pk, buf, leaf, ref, x, xt, got, want
+    return [ssd_row]
+
+
+def deepseek_v2_lite_train(seed: int) -> list:
+    """deepseek-v2-lite-16b at published widths with 3 of its 27 layers
+    trained on the card: (a) the plain step, (b) the blob gradient sync
+    against the plain mean of two pods' gradients, (c) BlobShuffle's
+    training configuration; returns the kernels rows of the training
+    path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_pack.ref import blob_pack_ref
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.blob_unpack.ref import blob_unpack_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.mesh import stacked_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_module
+    from repro_torch.models.common import init_params
+    from repro_torch.models.flash import flash_bwd
+    from repro_torch.shuffle import api, dispatch
+    from repro_torch.shuffle import grad_sync as GS
+    from repro_torch.shuffle.binning import bin_pack, sorted_order
+    from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
+                                      make_loss_fn, make_train_step)
+    from repro_torch.training.train_step import _grads, _split_micro
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before training: {held_gb} GB held")
+    arch = "deepseek-v2-lite-16b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
+    m = cfg.moe
+    n_moe = cfg.num_layers - m.first_dense_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(lm.LM(cfg, device="cuda"), gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count(), f"{n_params} parameters")
+    B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
+    rows = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    batch = {"tokens": rows[:, :-1].contiguous(), "labels": rows[:, 1:].contiguous()}
+    kernels = {kn.symbol: kn for kn in (pack_kernel.PACK, unpack_kernel.UNPACK,
+                                        *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
+    flash = flash_kernel.FLASH_WGMMA
+    opt_cfg = OptConfig(learning_rate=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    dense = api.ShuffleConfig(mode="dense", capacity_factor=m.capacity_factor)
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    result = {"phase": "deepseek_v2_lite_train", "arch": arch, "layers": cfg.num_layers,
+              "published_layers": get_config(arch).num_layers, "params": n_params,
+              "batch": B, "seq": S, "microbatches": TRAIN_MICROBATCHES, "remat": "full",
+              "compute_dtype": "bfloat16", "capacity_factor": m.capacity_factor,
+              "opt": dataclasses.asdict(opt_cfg)}
+
+    def run_steps(step, opt, n, per_step):
+        """n steps on the fixed batch: losses, grad norms, step seconds,
+        the launches a step (counted over all n), the peak memory."""
+        losses, norms, secs = [], [], []
+        for kn in kernels.values():
+            kn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nonlocal params
+        for _ in range(n):
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        launches = {s_: kn.launches for s_, kn in kernels.items()}
+        want = {s_: n * c for s_, c in per_step.items()}
+        check(launches == {s_: want.get(s_, 0) for s_ in kernels},
+              f"{n} steps: {per_step} launches a step and no other kernel: {launches}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(total_gb - peak >= MIN_HEADROOM_GB,
+              f"training peak {peak} GB leaves {MIN_HEADROOM_GB} GB of {total_gb}")
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"losses {losses} and gradient norms {norms} finite")
+        return opt, metrics, {"losses": losses, "grad_norms": norms, "step_s": secs,
+                              "median_step_s": statistics.median(secs[1:] or secs),
+                              "tokens_per_s": B * S / statistics.median(secs[1:] or secs),
+                              "peak_memory_gb": peak,
+                              "launches_per_step": {s_: c // n for s_, c in launches.items() if c}}
+
+    # (a) the plain step: dense dispatch, no mesh
+    per_step = {flash.symbol: TRAIN_FLASH_LAUNCHES, pack_kernel.PACK.symbol: TRAIN_PACK_LAUNCHES,
+                unpack_kernel.UNPACK.symbol: TRAIN_PACK_LAUNCHES}
+    step = make_train_step(cfg, TrainConfig(opt=opt_cfg, microbatches=TRAIN_MICROBATCHES,
+                                            remat="full", shuffle=dense))
+    # the shape of every pack and unpack launch, so that their rows can
+    # say how many launches ran at the shape they time
+    by_shape = {}
+    real_launch = {"pack": pack_kernel.launch, "unpack": unpack_kernel.launch}
+
+    def shape_recording(kind):
+        def launch(out, src, idx, *args, **kwargs):
+            if kind == "pack" or idx.shape[0]:     # an empty unpack launches nothing
+                key = (kind, tuple(src.shape), tuple(idx.shape), tuple(out.shape))
+                by_shape[key] = by_shape.get(key, 0) + 1
+            return real_launch[kind](out, src, idx, *args, **kwargs)
+        return launch
+
+    pack_kernel.launch, unpack_kernel.launch = shape_recording("pack"), shape_recording("unpack")
+    try:
+        opt, _, plain = run_steps(step, adamw_init(params), TRAIN_STEPS, per_step)
+    finally:
+        pack_kernel.launch, unpack_kernel.launch = real_launch["pack"], real_launch["unpack"]
+    for kind, kern in (("pack", pack_kernel.PACK), ("unpack", unpack_kernel.UNPACK)):
+        check(sum(n for key, n in by_shape.items() if key[0] == kind)
+              == TRAIN_STEPS * plain["launches_per_step"][kern.symbol],
+              f"every {kind} launch of the plain steps recorded by shape: {by_shape}")
+    plain["launches_by_shape_per_step"] = {
+        f"{kind} in {list(a)} index {list(b)} out {list(c)}": n // TRAIN_STEPS
+        for (kind, a, b, c), n in by_shape.items()}
+    check(plain["losses"][-1] < plain["losses"][0],
+          f"loss {plain['losses'][-1]} after {TRAIN_STEPS} steps below {plain['losses'][0]}")
+    profile = profile_call(lambda: step(params, opt, batch), "deepseek_v2_lite_train_profile",
+                           25)
+    result["plain"] = plain
+    del opt
+
+    # (b) the gradient sync at full width: each pod's gradients for its
+    # half of the batch (dense dispatch), exact and int8 against the plain
+    # mean of the two
+    mesh = stacked_mesh(**EP_MESH)
+    loss_fn = make_loss_fn(cfg, TrainConfig(remat="full", shuffle=dense))
+    stacked = None
+    for p_idx, half in enumerate(_split_micro(batch, EP_MESH["pod"])):
+        grads, _ = _grads(loss_fn, params, half, TRAIN_MICROBATCHES)
+        if stacked is None:
+            stacked = {n: g.new_empty((EP_MESH["pod"], *g.shape)) for n, g in grads.items()}
+        for n, g in grads.items():
+            stacked[n][p_idx] = g
+        del grads
+    exchange = GS.pod_exchange(mesh)
+    sync = {"pods": EP_MESH["pod"], "blob_bytes": TrainConfig().grad_sync_blob_bytes}
+    for name, compress in (("exact", False), ("int8", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synced, _, nbytes = GS.blob_allreduce_grads(
+            stacked, exchange=exchange, blob_bytes=sync["blob_bytes"], compress=compress)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        worst, largest = 0.0, 0.0
+        for n, g in stacked.items():
+            mean = (g[0] + g[1]) / 2
+            check(torch.equal(synced[n][0], synced[n][1]), f"{name}: both pods hold {n}")
+            worst = max(worst, float((synced[n][0] - mean).abs().max()))
+            largest = max(largest, float(mean.abs().max()))
+            if not compress:
+                err = rel_max(synced[n][0], mean)
+                check(err <= SYNC_EXACT_TOL, f"exact sync of {n}: {err}")
+        if compress:
+            check(worst / largest <= SYNC_INT8_TOL,
+                  f"int8 sync within {SYNC_INT8_TOL} of the largest entry: {worst / largest}")
+        sync[name] = {"pod_bytes": nbytes, "max_abs_err": worst, "largest": largest,
+                      "rel_to_largest": worst / largest, "seconds": secs}
+        del synced
+    n_total = sum(g[0].numel() for g in stacked.values())
+    sync["n_blobs"] = min(max(-(-n_total // (sync["blob_bytes"] // 4)), 1), GS.MAX_BLOBS)
+    sync["elements"] = n_total
+    result["grad_sync"] = sync
+    del stacked
+
+    # (c) BlobShuffle's training configuration: the int8 gradient sync,
+    # the shuffle blob made pod-local; as in the JAX package, the pod
+    # region's loss gets no mesh, so its MoE layers take the dense dispatch
+    diags, meshes = [], []
+    original = moe_module.moe_apply
+
+    def moe_recording(cfg_, p, x, **kwargs):
+        # at entry: the recompute stops inside the layer once it has what
+        # the backward needs, so only the forward returns
+        meshes.append(kwargs.get("mesh"))
+        out = original(cfg_, p, x, **kwargs)
+        diags.append(out[2])
+        return out
+
+    pods = EP_MESH["pod"]
+    per_step = {flash.symbol: pods * TRAIN_FLASH_LAUNCHES,
+                pack_kernel.PACK.symbol: pods * TRAIN_PACK_LAUNCHES,
+                unpack_kernel.UNPACK.symbol: pods * TRAIN_PACK_LAUNCHES}
+    step = make_train_step(cfg, TrainConfig(
+        opt=opt_cfg, microbatches=TRAIN_MICROBATCHES, remat="full",
+        shuffle=api.ShuffleConfig(mode="blob", capacity_factor=m.capacity_factor),
+        grad_sync="blob_int8"), mesh=mesh)
+    moe_module.moe_apply = moe_recording
+    try:
+        opt, metrics, blob = run_steps(step, adamw_init(params), TRAIN_BLOB_STEPS, per_step)
+    finally:
+        moe_module.moe_apply = original
+    # every MoE call (forward and recompute, per pod and microbatch)
+    dcn = sorted({float(dg["dcn_bytes"]) for dg in diags})
+    blob.update(grad_sync_pod_bytes=float(metrics["grad_sync_bytes"]),
+                moe_calls=len(meshes), moe_dcn_bytes=dcn, moe_dispatch="dense")
+    check(len(meshes) == TRAIN_BLOB_STEPS * pods * TRAIN_MICROBATCHES * 2 * n_moe
+          and all(ms is None for ms in meshes),
+          f"every MoE call of the pod region without a mesh: {len(meshes)} calls")
+    check(dcn == [0.0], f"pod-local MoE layers send nothing across pods: {dcn}")
+    result["blob_int8"] = blob
+    del opt
+
+    # the kernels at the training shape: one microbatch of 2 x 4,096 tokens
+    mb = B // TRAIN_MICROBATCHES
+    Hh, Dq = cfg.num_heads, cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    q, kk, v, dout = (torch.randn((mb, S, Hh, Dq), generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(4))
+    out = flash_kernel.flash_attention_cuda(q, kk, v, causal=True)
+    flash_ms = time_ms(lambda: flash_kernel.launch(out, q, kk, v, causal=True), TIMED_RUNS)
+    flash_bwd_ms = time_ms(lambda: flash_bwd(q, kk, v, out, dout, causal=True), 5, warmup=1)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2), is_causal=True)
+    want = flash_ref(q, kk, v, causal=True)
+    cmp = flash_compare(out, want)
+    check(cmp["ok"], f"flash at the training shape: {cmp}")
+    flops = flash_flops(mb, S, S, Hh, Dq)
+    fb, fby = bound(flops, 4 * q.numel() * q.element_size())
+    step_ms = plain["median_step_s"] * 1e3
+    result["flash_backward"] = {"ms": flash_bwd_ms, "calls_per_step": TRAIN_FLASH_LAUNCHES // 2,
+                                "share_of_plain_step": flash_bwd_ms * TRAIN_FLASH_LAUNCHES / 2
+                                / step_ms}
+    train_rows = [{
+        "name": "flash_attention_train", "route": "cuda", "symbol": flash.symbol,
+        "config": f"{arch} ({TRAIN_LAYERS} layers)", "path": "deepseek_v2_lite_train",
+        "shape": [mb, S, Hh, Hh, Dq], "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+        "launches": plain["launches_per_step"][flash.symbol],
+        "max_abs_err": cmp["max_abs_err"], "ms": flash_ms,
+        "plain_ms": time_ms(lambda: flash_ref(q, kk, v, causal=True), 3, warmup=1),
+        "bound_ms": fb, "bound_by": fby, "library_ms": time_ms(sdpa, TIMED_RUNS),
+        "library_call": "scaled_dot_product_attention", "backward_ms": flash_bwd_ms,
+        "backward": "plain torch (models/flash.py)", "flops": flops}]
+    del q, kk, v, dout, out, want
+    # pack and unpack at one microbatch's MoE shape: 8,192 tokens, top-6
+    Tm, k, E, d = mb * S, m.top_k, m.num_experts, cfg.d_model
+    cap = dispatch._cap(Tm * k / E, m.capacity_factor)
+    x = torch.randn((Tm, d), generator=gen, device="cuda").to(torch.bfloat16)
+    sel = api._route(x, params.blocks[0].ffn.router.detach(), k, True)[1].reshape(-1)
+    order, starts, counts = sorted_order(sel, E)
+    pk = bin_pack(sel, E, cap)
+    tok = torch.arange(Tm, dtype=torch.int32, device="cuda").repeat_interleave(k)[order]
+    buf = pack_kernel.blob_pack_fused_cuda(x, tok, starts, counts, capacity=cap)
+    check(same_bits(buf, blob_pack_ref(x, tok, starts, counts, capacity=cap)),
+          "pack at the training shape == blob_pack_ref")
+    y = unpack_kernel.blob_unpack_fused_cuda(buf, pk.slot, pk.valid)
+    check(same_bits(y, blob_unpack_ref(buf, pk.slot, pk.valid)),
+          "unpack at the training shape == blob_unpack_ref")
+    live = int(torch.clamp(counts, max=cap).sum())
+    n_valid = int(pk.valid.sum())
+    row_bytes = d * x.element_size()
+    pos = starts[:, None] + torch.arange(cap, device="cuda", dtype=torch.int32)
+    flat_tok = tok[torch.clamp(pos, 0, tok.shape[0] - 1)].reshape(-1)
+    shape = {"units": Tm * k, "bins": E, "capacity": cap, "width": d, "dtype": "bfloat16"}
+    # launches a step at the timed shape: the forward's and the
+    # recompute's; for unpack also pack's backward, which reads the same
+    # bins back into the Tm * k sorted positions (unpack's backward, a
+    # pack of Tm * k + 1 rows by E * cap slots, is at another shape)
+    timed_keys = {"moe_pack_train": (("pack", (Tm, d), (Tm * k,), (E, cap, d)), 2),
+                  "moe_unpack_train": (("unpack", (E, cap, d), (Tm * k,), (Tm * k, d)), 3)}
+    for name, kern, run, plain_fn, library, nbytes, replaces in (
+            ("moe_pack_train", pack_kernel.PACK,
+             lambda: pack_kernel.launch(buf, x, tok, starts, counts),
+             lambda: blob_pack_ref(x, tok, starts, counts, capacity=cap),
+             lambda: torch.index_select(x, 0, flat_tok),
+             live * row_bytes + buf.numel() * buf.element_size() + 4 * (Tm * k + 2 * E),
+             "src/repro/kernels/blob_pack/kernel.py:95"),
+            ("moe_unpack_train", unpack_kernel.UNPACK,
+             lambda: unpack_kernel.launch(y, buf, pk.slot, pk.valid),
+             lambda: blob_unpack_ref(buf, pk.slot, pk.valid),
+             lambda: torch.index_select(buf.view(-1, d), 0, pk.slot),
+             n_valid * row_bytes + Tm * k * row_bytes + 5 * Tm * k,
+             "src/repro/kernels/blob_unpack/kernel.py:79")):
+        bound_ms, bound_by = bound(0, nbytes)
+        train_rows.append({
+            "name": name, "route": "cuda", "symbol": kern.symbol,
+            "config": f"{arch} ({TRAIN_LAYERS} layers)", "path": "deepseek_v2_lite_train",
+            "shape": shape, "source": "src/repro_torch/kernels/csrc/blob_kernels.cu",
+            "replaces": replaces, "launches": plain["launches_per_step"][kern.symbol],
+            "launches_at_timed_shape": by_shape.get(timed_keys[name][0], 0) // TRAIN_STEPS,
+            "max_abs_err": 0.0,
+            "ms": time_ms(run, TIMED_RUNS), "plain_ms": time_ms(plain_fn, 5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(library, TIMED_RUNS), "library_call": "torch.index_select",
+            "bytes": nbytes})
+        check(train_rows[-1]["launches_at_timed_shape"]
+              == timed_keys[name][1] * n_moe * TRAIN_MICROBATCHES,
+              f"{name}: {timed_keys[name][1]} launches a MoE layer and microbatch at the "
+              f"timed shape {timed_keys[name][0]}: {plain['launches_by_shape_per_step']}")
+    result["flash_backward"]["share_note"] = (
+        "the plain backward's time at the training shape, times its calls a "
+        "step, over the median plain step")
+    emit({**result, "ok": True})
+    emit(profile)
+    del x, buf, y, params, batch, rows
+    return train_rows
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1667,6 +2219,8 @@ def main(argv=None) -> int:
                           "flash_attention_mla")
     rows += deepseek_v2_lite_ep(args.seed)
     rows += decoder_serve(args.seed, "gemma-2b", "gemma_2b_serve", "flash_attention_gemma")
+    rows += kernel_grads(args.seed)
+    rows += deepseek_v2_lite_train(args.seed)
     emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -1,7 +1,14 @@
 """Public op of flash attention, the port of
 ``repro.kernels.flash_attention.ops``: CUDA tensors go through the kernel
 (``kernel.flash_attention_cuda``), CPU tensors through the plain version
-(``ref.flash_ref``). Both devices check the kernel's contract."""
+(``ref.flash_ref``). Both devices check the kernel's contract.
+
+``flash_attention_op`` is differentiable in q, k and v. The JAX package
+has no Pallas backward: its flash attention's VJP is plain jnp
+(``repro.models.flash``). So here too the backward is plain torch on
+every device, ``repro_torch.models.flash.flash_bwd``: the block scores
+are recomputed from q and k in f32, after the log-sum-exp, which the
+kernel does not write."""
 
 from __future__ import annotations
 
@@ -15,12 +22,36 @@ from repro_torch.kernels.flash_attention.kernel import (KERNEL_DTYPES,
 from repro_torch.kernels.flash_attention.ref import flash_ref
 
 
+def attention_rows(q, k, v, causal: bool, scale: Optional[float]) -> torch.Tensor:
+    """The attention where its tensors lie, outside autograd."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    check_attention(q, k, v, KERNEL_DTYPES)
+    return flash_ref(q, k, v, causal=causal, scale=scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``attention_rows`` with ``models.flash.flash_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = attention_rows(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.models.flash import flash_bwd
+
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, dout, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        *, causal: bool = True, scale: Optional[float] = None
                        ) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> (B, Sq, H, D) in q's
     dtype. The scores are scaled by ``scale``, 1/sqrt(D) unless given."""
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
-    check_attention(q, k, v, KERNEL_DTYPES)
-    return flash_ref(q, k, v, causal=causal, scale=scale)
+    return FlashAttention.apply(q, k, v, causal, scale)

@@ -6,6 +6,11 @@ inter-chunk recurrence and the ``y_inter`` contraction in torch.
 
 ``ssd_chunked`` is the same algorithm with the plain per-chunk terms on
 every device: the reference the op is held against on the card.
+
+The per-chunk terms are differentiable (``SSDChunk``): the JAX package's
+gradient of the SSD is autodiff of its jnp chunked scan, so the backward
+here is autograd of the plain per-chunk terms, recomputed from the saved
+inputs. The recurrence and ``y_inter`` are plain torch already.
 """
 
 from __future__ import annotations
@@ -21,11 +26,41 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 PLAIN_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _per_chunk(xq, dtq, A, Bq, Cq):
+def chunk_terms(xq, dtq, A, Bq, Cq):
+    """The per-chunk terms where their tensors lie, outside autograd."""
     if xq.is_cuda:
         return ssd_chunk_cuda(xq, dtq, A, Bq, Cq)
     check_ssd_chunk(xq, dtq, A, Bq, Cq, PLAIN_DTYPES)
     return ssd_chunk_ref(xq, dtq, A, Bq, Cq)
+
+
+class SSDChunk(torch.autograd.Function):
+    """``chunk_terms`` with autograd of ``ssd_chunk_ref`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, xq, dtq, A, Bq, Cq):
+        out = chunk_terms(xq, dtq, A, Bq, Cq)
+        ctx.save_for_backward(xq, dtq, A, Bq, Cq)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            outs = ssd_chunk_ref(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        if not wanted or not pairs:
+            return (None,) * len(inputs)
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                       [g for _, g in pairs], allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None for t in inputs)
+
+
+def _per_chunk(xq, dtq, A, Bq, Cq):
+    return SSDChunk.apply(xq, dtq, A, Bq, Cq)
 
 
 def _check_inputs(x, dt, A, B, C, chunk) -> None:

@@ -10,6 +10,11 @@ Per (batch, chunk, head) it computes, all in f32:
 
 B and C may carry G groups for the H heads (head h reads group
 ``h // (H // G)``); G == H is the JAX package's contract.
+
+It is also the backward of the kernel (``ops.SSDChunk``): autograd of
+these terms. Its values are the JAX package's bit for bit; its gradient
+is finite where JAX's autodiff of ``jnp.where(causal, jnp.exp(diff), 0)``
+is not (a chunk whose decay leaves f32's range in the masked half).
 """
 
 from __future__ import annotations
@@ -36,7 +41,11 @@ def ssd_chunk_ref(xq, dtq, A, Bq, Cq):
     diff = cum_a[:, :, :, None, :] - cum_a[:, :, None, :, :]   # (b,nc,Q,Q,H)
     ii = torch.arange(Q, device=xq.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    decay = torch.where(causal, torch.exp(diff), 0.0)
+    # the masked half is set to -inf before the exponential (0 after it,
+    # as the JAX package's where after the exponential gives): there diff
+    # can pass f32's range, and an inf there would make the gradient
+    # 0 * inf = nan
+    decay = torch.exp(torch.where(causal, diff, -torch.inf))
     cb = torch.einsum("bcign,bcjgn->bcijg", Cq, Bq)[..., None]  # (b,nc,Q,Q,G,1)
     scores = (cb * decay.reshape(b, nc, Q, Q, G, rep)).reshape(b, nc, Q, Q, H) \
         * dtq[:, :, None, :, :]

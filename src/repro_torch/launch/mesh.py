@@ -14,6 +14,10 @@ The expert-parallel dispatch exchanges tensors between the ranks through
   ``torch.distributed`` process group (gloo on the CPU, NCCL on a host of
   several cards); the leading rank axis has size 1.
 
+``pod_submesh`` gives the stacked mesh of one pod, the mesh without its
+pod axis: the ranks a pod-local region (``ShuffleConfig.pod_local``)
+runs its expert-parallel dispatch over.
+
 Building a mesh touches no device and starts no process.
 """
 
@@ -86,6 +90,21 @@ def process_group_mesh(**sizes: int) -> ProcessGroupMesh:
         raise ValueError(f"a process-group mesh of {mesh.size} ranks needs a "
                          f"default process group of that size, got {world}")
     return mesh
+
+
+def pod_submesh(mesh: StackedMesh, pod_axis: str = "pod") -> StackedMesh:
+    """The mesh of one pod: ``mesh`` without ``pod_axis``, holding one
+    pod's ranks (the caller runs the pods in turn). A pod of a
+    ``ProcessGroupMesh`` is not built: its groups would have to be made
+    over the whole mesh's ranks, and no step runs one."""
+    if not isinstance(mesh, StackedMesh):
+        raise ValueError(f"a pod's mesh is built from a StackedMesh, not a "
+                         f"{type(mesh).__name__}")
+    if pod_axis not in mesh.axis_names:
+        raise ValueError(f"the mesh {mesh.axis_names} has no {pod_axis!r} axis")
+    keep = [i for i, a in enumerate(mesh.axis_names) if a != pod_axis]
+    return StackedMesh(tuple(mesh.axis_names[i] for i in keep),
+                       tuple(mesh.sizes[i] for i in keep))
 
 
 def make_test_mesh(*, devices: int = 8) -> StackedMesh:

@@ -1,0 +1,71 @@
+"""Training launcher of the port:
+``python -m repro_torch.launch.train --arch <id> ...``
+
+A plain loop over ``training.make_train_step``, as ``repro.launch.train``
+runs it: parameters drawn from seed 0 on ``--device`` (default ``cuda``),
+batches from ``data.lm_batch_stream``, the loss printed at the first and
+the last step. ``--smoke`` (default) takes the reduced config, ``--full``
+the published one. One device runs no mesh, so the blob gradient-sync
+modes take the plain step there, as the JAX launcher does on one device.
+
+The JAX launcher's ``--ckpt-dir`` and ``--ckpt-every`` are left out: its
+``FaultTolerantTrainer`` and checkpoint store are not ported yet, so this
+loop neither saves nor resumes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="deepseek-v2-lite-16b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--moe-mode", default="dense", choices=["dense", "direct", "blob"])
+    ap.add_argument("--grad-sync", default="auto", choices=["auto", "blob", "blob_int8"])
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch_stream
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params
+    from repro_torch.shuffle.api import ShuffleConfig
+    from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
+                                      make_train_step)
+
+    device = torch.device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    params = init_params(lm.LM(cfg, device=device),
+                         torch.Generator(device=device).manual_seed(0))
+    opt = adamw_init(params)
+    shuf = ShuffleConfig(mode=args.moe_mode if cfg.moe else "dense")
+    tcfg = TrainConfig(opt=OptConfig(learning_rate=args.lr, total_steps=args.steps),
+                       microbatches=args.microbatches, shuffle=shuf,
+                       grad_sync=args.grad_sync)
+    step = make_train_step(cfg, tcfg)
+    batch_fn = lm_batch_stream(cfg.vocab_size, args.batch, args.seq, device=device)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"arch={cfg.name} params={n_params:,} device={device}")
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(args.steps):
+        params, opt, metrics = step(params, opt, batch_fn(i))
+        losses.append(float(metrics["loss"]))
+    print(f"done: {args.steps} steps in {time.perf_counter() - t0:.1f}s; "
+          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -17,7 +17,9 @@ so parity tests load the JAX package's parameters through
 
 Modules hold their parameters as ``nn.Parameter``s and record each one's
 spec in ``ParamModule.specs``; ``init_params`` walks a module tree and
-draws every parameter in place.
+draws every parameter in place. Parameters are declared without
+``requires_grad``, for serving; the train step makes them leaves that
+require grad (``training.train_step``).
 """
 
 from __future__ import annotations

@@ -16,7 +16,8 @@ residual ``x + y - z``.
 
 Public surface:
   * ``LM(cfg, device="cuda")``                 - the parameters
-  * ``forward(cfg, params, batch, mesh=None, shuffle=DENSE)`` - (logits, aux) for prefill
+  * ``forward(cfg, params, batch, mesh=None, shuffle=DENSE, remat="none")``
+                                               - (logits, aux) for training and prefill
   * ``cache_defs(cfg, batch, max_seq)``        - decode cache specs
   * ``init_cache(cfg, batch, max_seq, device="cuda")`` - a zero cache
   * ``decode_step(cfg, params, cache, batch, mesh=None, shuffle=DENSE)``
@@ -25,7 +26,15 @@ Public surface:
 ``shuffle`` selects the MoE dispatch and ``mesh``
 (``repro_torch.launch.mesh``) the ranks it runs over; without a mesh
 every mode takes the dense dispatch. Only the MoE layer reads the mesh:
-everything else runs whole on the device. What the port does not run
+everything else runs whole on the device. ``remat`` recomputes each
+remat unit of the JAX package in the backward pass instead of keeping its
+activations: each decoder block (the leading dense ones too), each Mamba2
+block, and each hybrid group of ``shared_block_every`` Mamba2 layers with
+its shared block. ``full`` keeps only the units' inputs
+(``torch.utils.checkpoint``, the twin of ``jax.checkpoint``); ``dots``
+keeps the outputs of the matrix products as well (a selective checkpoint
+of ``aten.mm`` and ``aten.bmm``, the twin of ``checkpoint_dots``).
+What the port does not run
 raises ``ValueError`` naming it: the ``encoder`` kind and the multimodal frontends, which come with
 later slices; a MoE layer or MLA outside the ``decoder`` kind, which the
 JAX package's ``ssm`` and ``hybrid`` kinds have no cache or layer for;
@@ -35,8 +44,11 @@ tensors in bf16, and the port's SSD chunk computes in f32 only.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -49,6 +61,10 @@ from repro_torch.shuffle.api import ShuffleConfig
 
 KINDS = ("decoder", "ssm", "hybrid")
 DENSE = ShuffleConfig(mode="dense")
+REMAT = ("none", "dots", "full")
+#: the matrix products that remat "dots" keeps
+_save_dots = functools.partial(create_selective_checkpoint_contexts,
+                               [torch.ops.aten.mm.default, torch.ops.aten.bmm.default])
 
 
 def _check_kind(cfg: ModelConfig) -> None:
@@ -163,12 +179,24 @@ def _shared_input(cfg: ModelConfig, params: LM, g: int, x, x0):
     return inp.to(cd) @ params.shared_in[g].to(cd)
 
 
+def _remat(fn, policy: str):
+    """``fn`` run as one remat unit under ``policy`` (module docstring)."""
+    if policy == "none":
+        return fn
+    kwargs = {"use_reentrant": False}
+    if policy == "dots":
+        kwargs["context_fn"] = _save_dots
+    return functools.partial(checkpoint, fn, **kwargs)
+
+
 def forward(cfg: ModelConfig, params: LM, batch: dict, *, mesh=None,
-            shuffle: ShuffleConfig = DENSE):
+            shuffle: ShuffleConfig = DENSE, remat: str = "none"):
     """Full-sequence forward. batch {"tokens": (B, S)}. Returns
     (logits (B, S, V), aux_loss): the sum of the MoE layers' aux losses,
-    0 for the other kinds."""
+    0 for the other kinds. ``remat``: none | dots | full."""
     _check_kind(cfg)
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     x = L.embed_apply(cfg, params.embed, batch["tokens"])
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
@@ -176,22 +204,27 @@ def forward(cfg: ModelConfig, params: LM, batch: dict, *, mesh=None,
     if cfg.kind == "decoder":
         auxes = []
         for blk in (*params.dense_blocks, *params.blocks):
-            x, a = _block_apply(cfg, blk, x, positions, mesh=mesh, shuffle=shuffle)
+            x, a = _remat(functools.partial(_block_apply, cfg, blk, positions=positions,
+                                            mesh=mesh, shuffle=shuffle), remat)(x)
             auxes.append(a)
         aux = torch.stack(auxes).sum()
     elif cfg.kind == "ssm":
         for blk in params.blocks:
-            x = _ssm_block_apply(cfg, blk, x)
+            x = _remat(functools.partial(_ssm_block_apply, cfg, blk), remat)(x)
     else:
         k = cfg.hybrid.shared_block_every
         x0 = x  # the initial embedding, fed to every shared-block call
-        for g in range(cfg.num_layers // k):
+
+        def group(x, g):
             for blk in params.blocks[g * k:(g + 1) * k]:
                 x = _ssm_block_apply(cfg, blk, x)
             z = _shared_input(cfg, params, g, x, x0)
             y, _ = _block_apply(cfg, params.shared_block, z, positions,
                                 mesh=mesh, shuffle=shuffle)
-            x = x + y - z
+            return x + y - z
+
+        for g in range(cfg.num_layers // k):
+            x = _remat(functools.partial(group, g=g), remat)(x)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = L.unembed_apply(cfg, params.embed, x)
     return logits, aux

@@ -57,9 +57,8 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
                 "dropped": torch.zeros((), dtype=torch.int32, device=x.device),
                 "dcn_bytes": torch.zeros((), dtype=torch.float32, device=x.device)}
     else:
-        ctx = None if shuffle.use_context_mesh else mesh
-        shuf = shuffle.resolve(ctx)
-        devs = math.prod(ctx.shape[a] for a in shuf.token_axes)
+        shuf = shuffle.resolve(mesh)
+        devs = math.prod(mesh.shape[a] for a in shuf.token_axes)
         T = B * S
         pad = (-T) % devs
         if pad:

@@ -57,10 +57,18 @@ class ShuffleConfig:
     the JAX package, ``moe_apply``'s dense path reads ``mode`` and
     ``norm_topk`` and takes the capacity factor from the model's
     ``MoEConfig``; with a mesh ``ep_moe_ffn`` reads every field,
-    ``capacity_factor`` included. ``use_context_mesh`` is set by the
-    train step of the JAX package; the port has no context mesh, so with
-    it set ``ep_moe_ffn`` finds no mesh axes and runs the dense
-    dispatch, as the JAX package does outside a mesh context."""
+    ``capacity_factor`` included. ``use_context_mesh`` (set by
+    ``pod_local``) marks a pod-local region: in the JAX package the
+    dispatch then runs inside a ``shard_map`` manual over the pod axis,
+    over the ambient mesh's other axes. The port has no ambient mesh, so
+    the caller passes the pod's own mesh (``launch.mesh.pod_submesh``)
+    and ``ep_moe_ffn`` runs the expert-parallel dispatch over its ranks;
+    a mesh that still has the pod axis is refused. On a pod's mesh the
+    aux loss and the diagnostics are the pod's own, where JAX's nested
+    ``shard_map`` sums them over the manual pod axis too. The train
+    step's gradient-sync modes set the flag, but pass no mesh to the
+    pod's loss (neither package does), so their MoE layers take the
+    dense dispatch."""
     mode: str = "dense"                  # dense | direct | blob
     token_axes: tuple = ("pod", "data", "model")
     expert_axes: tuple = ("pod", "model")  # EP domain, major -> minor
@@ -179,16 +187,19 @@ def ep_moe_ffn(x, w_router, we_gate, we_up, we_down, *, top_k: int,
     (callers pad; ``token_mask`` zeroes the combine weights of pad
     tokens). Expert weights: (E, d, d_e) / (E, d_e, d), split over
     ``expert_axes``. Returns (y (T, d), aux_loss, DispatchDiagnostics),
-    the diagnostics summed over the whole mesh.
+    the diagnostics summed over the whole mesh. With
+    ``cfg.use_context_mesh`` the mesh is one pod's (``ShuffleConfig``).
 
     Without a mesh, or with no expert axis in it, every mode takes
     ``dense_moe_ffn``, and ``token_mask`` is not read (as in the JAX
     package). ``blob`` runs ``direct`` unless the pod axis is in the EP
     domain with a size above 1. A mesh of a type that no exchange runs
     is refused by name."""
-    if cfg.use_context_mesh:
-        mesh = None
     ex = for_mesh(mesh) if mesh is not None else None
+    if cfg.use_context_mesh and cfg.pod_axis in _mesh_axis_names(mesh):
+        raise ValueError(
+            f"a pod-local region runs on one pod's mesh "
+            f"(launch.mesh.pod_submesh), not on {mesh.axis_names}")
     cfg = cfg.resolve(mesh)
     if cfg.mode == "dense" or not cfg.expert_axes:
         y, aux, load = dense_moe_ffn(

@@ -18,12 +18,21 @@ rank-major over the mesh's axes, and offer:
                         ``PartitionSpec(axes)``: (ranks, N / n, ...)
   unshard(x, axes)      the inverse: the global array, read from the ranks
                         at coordinate 0 of the axes not in ``axes``
+  all_gather(x, axes)   ``lax.all_gather(x, axes)``: x (ranks, ...) ->
+                        (ranks, n, ...), entry j the x of the rank whose
+                        coordinates along ``axes`` have linear index j
+                        and whose other coordinates are this rank's
 
 ``Stacked`` (a ``StackedMesh``, every rank in this process) moves tensors
 by transposing rank axes; ``ProcessGroups`` (a ``ProcessGroupMesh``, one
 rank a process) by ``torch.distributed``, with one group per tuple of
-axes and coordinates of the other axes. ``all_gather`` comes with the
-gradient sync.
+axes and coordinates of the other axes.
+
+The stacked back end is plain tensor algebra, so autograd differentiates
+through it (an all-to-all's adjoint is the same all-to-all, a psum's a
+psum). The process-group back end moves bytes with ``torch.distributed``,
+which autograd does not see: its collectives refuse a tensor that
+requires grad rather than cut its gradient off.
 """
 
 from __future__ import annotations
@@ -134,6 +143,27 @@ class Stacked(_Exchange):
         v = _permuted(v, self._in_mesh_order(axes), axes)
         return v.reshape(-1, *x.shape[2:])
 
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = tuple(axes)
+        names, n = self.mesh.axis_names, len(self.mesh.axis_names)
+        inner = [names.index(a) for a in axes]
+        outer = [i for i in range(n) if i not in inner]
+        v = x.reshape(*self.mesh.sizes, *x.shape[1:])
+        # the gathered entries of each point of the other axes, in the
+        # order of ``axes``; then the same entries on every rank of it
+        v = v.permute(*outer, *inner, *range(n, v.dim()))
+        v = v.reshape(*[self.mesh.sizes[i] if i in outer else 1 for i in range(n)],
+                      self.axis_size(axes), *x.shape[1:])
+        return v.expand(*self.mesh.sizes, *v.shape[n:]).reshape(
+            self.ranks, -1, *x.shape[1:])
+
+
+def _no_grad(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"the process-group {name} does not differentiate: "
+                         f"autograd does not see torch.distributed; run the "
+                         f"backward pass over a StackedMesh")
+
 
 class ProcessGroups(_Exchange):
     """One rank a process over ``torch.distributed``: ``ranks`` is 1."""
@@ -168,6 +198,7 @@ class ProcessGroups(_Exchange):
 
         axes = tuple(axes)
         self._check_split(x, axes)
+        _no_grad("all_to_all", x)
         key = self._in_mesh_order(axes)
         send = self._reorder(x[0], axes, key).contiguous()
         recv = torch.empty_like(send)
@@ -179,6 +210,7 @@ class ProcessGroups(_Exchange):
 
         if not tuple(axes):
             return x
+        _no_grad("psum", x)
         out = x.clone()
         dist.all_reduce(out, group=self._group(axes))
         return out
@@ -199,13 +231,17 @@ class ProcessGroups(_Exchange):
         return x.reshape(n, -1, *x.shape[1:])[b:b + 1]
 
     def unshard(self, x: torch.Tensor, axes) -> torch.Tensor:
-        import torch.distributed as dist
-
         axes = tuple(axes)
         if not axes:
             return x[0]
+        return self.all_gather(x, axes)[0].reshape(-1, *x.shape[2:])
+
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        import torch.distributed as dist
+
+        axes = tuple(axes)
+        _no_grad("all_gather", x)
         key = self._in_mesh_order(axes)
         parts = [torch.empty_like(x[0]) for _ in range(self.axis_size(axes))]
         dist.all_gather(parts, x[0].contiguous(), group=self._group(axes))
-        return self._reorder(torch.stack(parts), key, axes).reshape(
-            -1, *x.shape[2:])
+        return self._reorder(torch.stack(parts), key, axes)[None]
