@@ -78,6 +78,23 @@
    of one prefill, and for the MoE configs the time of one layer's bf16
    weight copies, and decode and prefill with the checks that sync the
    host (on the keys and on the pack's order) and without them, in turn.
+   After deepseek-v2-lite's EP phase and gemma-2b's, the rest of the
+   JAX package's configs (``NEW_SERVE_PHASES``), each the same way:
+   granite-3-2b (40 layers, 32 heads of 64 over 8 kv heads, tied
+   embeddings), starcoder2-3b (30 layers, 24 heads of 128 over 2, GELU
+   and q/k/v biases), hubert-xlarge (phase ``hubert_xlarge_encode``: the
+   encoder, 48 layers, 16 heads of 80, non-causal, on 4 x 4,096 bf16
+   frames of the audio stub plus sinusoidal positions; its decode must be
+   refused by name by ``lm.init_cache``, ``launch.serve.generate`` and
+   the serve launcher), llava-next-34b (16 of its 60 layers, 56 heads of
+   128 over 8; each request 2,880 bf16 patches of the vision stub before
+   1,216 tokens; decode checked against the prefill of its text-only
+   prompt, as decode takes no patches) and qwen2-72b (8 of its 80
+   layers, 64 heads of 128 over 8, vocab 152,064). Each checks its
+   parameter count against the (cut) config, one wgmma flash launch a
+   layer (non-causal for hubert), the flash kernel against its plain
+   version on the first layer's q, k, v, and reports the item order
+   the launcher's rule picks.
 7. deepseek-v2-lite-16b at full width once more, its MoE layers over the
    ranks of a stacked mesh (``EP_MESH``: pod 2 x model 16, the EP domain
    of the JAX package's multi-pod production mesh, the data axis cut
@@ -158,7 +175,10 @@
    ``gemma_2b_prefill``): flash at the prefill's shape (D 128, 192, 256
    at B 4) and the pack and unpack kernels at the MoE layer's shape
    (65,536 units of 2,048 bf16 into 60 bins of 1,368; 98,304 into 64
-   bins of 1,920), each with its launches in that prefill. The EP phase
+   bins of 1,920), each with its launches in that prefill; so do the
+   five later configs (``flash_attention_granite``, ``_starcoder2``,
+   ``_hubert``, ``_llava``, ``_qwen2_72b``: D 64, 128, 80 non-causal,
+   128, 128 at B 4, with ``causal`` and ``item_order``). The EP phase
    adds the pack and unpack rows at each mode's stage-1 shapes (32 ranks
    of 3,072 units of 2,048 bf16 into 64 lanes of 64, or 16 blobs of
    240), ``path`` ``deepseek_v2_lite_ep_<mode>_prefill``, with the
@@ -221,6 +241,19 @@ GAP_TOL_BF16 = 0.1            # ... bf16 compute, times the largest |logit|
 DECODER_PREFILL_BATCH = 4
 DECODER_NEW_TOKENS = 32
 MIN_HEADROOM_GB = 4.0         # free device memory the prefill must leave
+# the rest of the JAX package's configs, served the same way: (arch,
+# phase, flash row, layers). llava-next-34b and qwen2-72b are cut in depth
+# to fit the card with their f32 parameters (16 of 60 layers: 9.84 G,
+# 39.4 GB; 8 of 80: 9.51 G, 38.1 GB; all their layers take 138 and 291
+# GB). hubert-xlarge is an encoder (non-causal, no decode step) whose
+# 4 x 4,096 bf16 frames are about 82 s of audio at 50 Hz each
+NEW_SERVE_PHASES = [
+    ("granite-3-2b", "granite_3_2b_serve", "flash_attention_granite", None),
+    ("starcoder2-3b", "starcoder2_3b_serve", "flash_attention_starcoder2", None),
+    ("hubert-xlarge", "hubert_xlarge_encode", "flash_attention_hubert", None),
+    ("llava-next-34b", "llava_next_34b_serve", "flash_attention_llava", 16),
+    ("qwen2-72b", "qwen2_72b_serve", "flash_attention_qwen2_72b", 8),
+]
 # deepseek-v2-lite-16b's expert-parallel serving: the EP domain of the JAX
 # package's multi-pod production mesh (pod 2 x model 16), its data axis
 # cut from 16 to 1 because one card holds the whole batch; 32 stacked
@@ -673,10 +706,50 @@ def f32p_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
     return {"max_abs": float(d.abs().max()), "rel_fro": float(d.norm() / want.float().norm())}
 
 
-def flash_flops(B, Sq, Skv, H, D) -> float:
-    """The two products' operations in causal attention, counting only
-    unmasked keys."""
-    return 4.0 * B * H * D * sum(min(i + 1, Skv) for i in range(Sq))
+def flash_flops(B, Sq, Skv, H, D, causal: bool = True) -> float:
+    """The two products' operations, counting only unmasked keys (all of
+    them without the causal mask)."""
+    keys = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
+    return 4.0 * B * H * D * keys
+
+
+def flash_item_order(B, Skv, KVH, D, causal: bool) -> dict:
+    """The item order the wgmma kernel's launcher picks by its rule
+    (``launch_wgmma`` in flash_attention.cu): balanced where the K and V
+    the items read (half of them under the causal mask) fit in L2,
+    head-major where they do not."""
+    kv_bytes = 2 * B * KVH * Skv * D * 2
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    read = kv_bytes // 2 if causal else kv_bytes
+    return {"item_order": "balanced" if read <= l2 else "head-major",
+            "kv_bytes_read": read, "l2_bytes": l2}
+
+
+def prefill_batch(cfg, gen: torch.Generator, B: int, S: int) -> dict:
+    """B requests of S positions drawn from ``gen``: tokens; for the audio
+    frontend bf16 frames (standard normal); for the vision frontend bf16
+    patches before S - P tokens."""
+    mm = cfg.multimodal
+    if mm is not None and mm.kind == "audio":
+        return {"frames": torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                                      dtype=torch.float32).to(torch.bfloat16)}
+    P = mm.num_patches if mm is not None else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - P), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    if P:
+        batch["patches"] = torch.randn((B, P, cfg.d_model), generator=gen, device="cuda",
+                                       dtype=torch.float32).to(torch.bfloat16)
+    return batch
+
+
+def refusal(fn, exc_type) -> str:
+    """The message of the ``exc_type`` that ``fn()`` must raise (a refusal
+    the phase expects); any other outcome fails the check."""
+    try:
+        fn()
+    except exc_type as e:
+        return str(e)
+    raise RuntimeError(f"check failed: {fn} did not raise {exc_type.__name__}")
 
 
 def bound(flops: float, nbytes: float):
@@ -1084,10 +1157,13 @@ def moe_layer_indexed(cfg, p, x):
     return y.to(x.dtype), api._aux_loss(probs, pack.counts, U, E) * m.aux_loss_coef, pack.counts
 
 
-def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
-    """``arch`` (a ``decoder`` config) prefill and decode at full width;
-    returns the rows of the kernels line for flash attention and, with a
-    MoE layer, the layer's pack and unpack."""
+def decoder_serve(seed: int, arch: str, phase: str, flash_row: str,
+                  layers: int | None = None) -> list:
+    """``arch`` (a ``decoder`` or ``encoder`` config) prefill and decode at
+    full width, with ``layers`` of its layers where given (a cut of
+    depth); returns the rows of the kernels line for flash attention and,
+    with a MoE layer, the layer's pack and unpack. An encoder's decode
+    must be refused by name."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1104,6 +1180,7 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
     from repro_torch.kernels.flash_attention.ref import flash_ref, flash_ref_f32p
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_module
     from repro_torch.models.common import init_params
@@ -1117,6 +1194,10 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
     held_gb = torch.cuda.memory_allocated() / 1e9
     check(held_gb < 0.5, f"device memory free before {arch}: {held_gb} GB held")
     cfg = get_config(arch)
+    published_layers = cfg.num_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    base = phase.rsplit("_", 1)[0]           # qwen2_moe_serve -> qwen2_moe
     m = cfg.moe
     d = cfg.d_model
     n_moe = cfg.num_layers - m.first_dense_layers if m is not None else 0
@@ -1128,8 +1209,7 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
     n_params = sum(p.numel() for p in params.parameters())
     check(n_params == cfg.param_count(), f"{n_params} parameters")
     B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
-                           dtype=torch.int32)
+    batch = prefill_batch(cfg, gen, B, S)
     prefill = make_prefill_step(cfg, ServeConfig())
     kernels = {kn.symbol: kn for kn in (
         pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
@@ -1147,7 +1227,7 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
     originals = (flash_ops.flash_attention_cuda, moe_module.moe_apply)
 
     def flash_capturing(*args, **kwargs):
-        captured.setdefault("flash", args)
+        captured.setdefault("flash", (args, kwargs))
         return originals[0](*args, **kwargs)
 
     def moe_recording(cfg_, p, x, **kwargs):
@@ -1169,7 +1249,7 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
         for kn in kernels.values():
             kn.launches = 0
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": tokens})
+        logits = prefill(params, batch)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = {name: kn.launches for name, kn in kernels.items()}
@@ -1189,14 +1269,17 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
     prefill_s = []
     for _ in range(2):
         t0 = time.perf_counter()
-        out = prefill(params, {"tokens": tokens})
+        out = prefill(params, batch)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
         del out
     prefill_s = min(prefill_s)
-    profile = profile_prefill(prefill, params, tokens,
-                              phase.replace("_serve", "_prefill_profile"), 25)
+    profile = profile_call(lambda: prefill(params, batch), f"{base}_prefill_profile", 25)
     result = {"phase": phase, "arch": arch, "params": n_params, "param_init_s": init_s,
+              "layers": cfg.num_layers, "published_layers": published_layers,
+              "cut": (None if layers is None else
+                      f"{cfg.num_layers} of {published_layers} layers"),
+              "inputs": {k: list(v.shape) for k, v in batch.items()},
               "prefill_batch": B, "prefill_len": S, "launches": launches,
               "prefill_first_s": first_s, "prefill_s": prefill_s,
               "prefill_tokens_per_s": B * S / prefill_s, "prefill_peak_memory_gb": peak_gb,
@@ -1244,103 +1327,128 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
                       moe_layer_bitwise_vs_plain=True)
 
     # flash on the first attention call's q, k, v
-    q, kk, v = captured["flash"]
-    flash_out = flash_kernel.flash_attention_cuda(q, kk, v, causal=True)
+    (q, kk, v), flash_kwargs = captured["flash"]
+    causal = cfg.causal
+    check(flash_kwargs == {"causal": causal, "scale": None},
+          f"the layers call flash causal={causal} at the default scale: {flash_kwargs}")
+    flash_out = flash_kernel.flash_attention_cuda(q, kk, v, causal=causal)
 
     def flash_plain():  # one batch row at a time bounds the S x S scores
-        return torch.cat([flash_ref(q[i:i + 1], kk[i:i + 1], v[i:i + 1], causal=True)
+        return torch.cat([flash_ref(q[i:i + 1], kk[i:i + 1], v[i:i + 1], causal=causal)
                           for i in range(q.shape[0])])
 
     flash_cmp = flash_compare(flash_out, flash_plain())
     check(flash_cmp["ok"], f"flash at the captured shape: {flash_cmp}")
     flash_gap = f32p_gap(flash_out, torch.cat([
-        flash_ref_f32p(q[i:i + 1], kk[i:i + 1], v[i:i + 1], causal=True)
+        flash_ref_f32p(q[i:i + 1], kk[i:i + 1], v[i:i + 1], causal=causal)
         for i in range(q.shape[0])]))
+    flash_order = flash_item_order(q.shape[0], kk.shape[1], kk.shape[2], q.shape[3], causal)
     result.update(flash_shape=list(q.shape), flash_kv_heads=kk.shape[2],
-                  flash_captured=flash_cmp, flash_captured_f32p_gap=flash_gap)
+                  flash_causal=causal, flash_captured=flash_cmp,
+                  flash_captured_f32p_gap=flash_gap,
+                  **{f"flash_{key}": val for key, val in flash_order.items()})
 
-    # decode as repro_torch.launch.serve does it, timed at the published
-    # config, where a decode step never drops a unit (a step's k units of
-    # a token go to k experts, at most B a bin of 8 or more). Against
-    # prefill of the same prompts with a MoE layer's capacity factor at
-    # E, where no unit can drop in either (the published factor drops
-    # others in a prefill of B * 16 tokens than in a decode step)
-    prompts = tokens[:, :PROMPT_LEN].contiguous()
-    cfg_gap = cfg if m is None else dataclasses.replace(
-        cfg, moe=dataclasses.replace(m, capacity_factor=float(E)))
-    moe_module.moe_apply = moe_recording
-    try:
-        loads.clear()
-        dec = generate(cfg, params, prompts, DECODER_NEW_TOKENS)
-        decode_drops = sum(drops(loads)) if m is not None else 0
-        loads.clear()
-        want = make_prefill_step(cfg_gap, ServeConfig())(params, {"tokens": prompts}).float()
-        dec_gap = generate(cfg_gap, params, prompts, 1)
-        gap_drops = sum(drops(loads)) if m is not None else 0
-    finally:
-        moe_module.moe_apply = originals[1]
-    check(bool(torch.isfinite(dec["logits"]).all()), "decode logits finite")
-    check(decode_drops == 0, f"decode steps drop no unit ({decode_drops})")
-    check(gap_drops == 0, f"no unit dropped in the prefill/decode check ({gap_drops})")
-    gap = float((dec_gap["logits"].float() - want).abs().max())
-    want_max = float(want.abs().max())
-    check(gap <= GAP_TOL_BF16 * want_max,
-          f"bf16 prefill vs decode logits: gap {gap}, largest logit {want_max}")
-    steps, decode_s = dec["logits"].shape[1], dec["seconds"]
-    del dec, dec_gap, want
-    result.update(decode_batch=B, prompt_len=PROMPT_LEN, new_tokens=DECODER_NEW_TOKENS,
-                  decode_steps=steps, decode_s=decode_s,
-                  decode_tokens_per_s=B * steps / decode_s,
-                  decode_ms_per_step=decode_s / steps * 1e3, decode_dropped=decode_drops,
-                  prefill_decode_gap_bf16=gap, prefill_logit_max_abs_bf16=want_max,
-                  gap_tol_bf16=GAP_TOL_BF16 * want_max,
-                  gap_capacity_factor=None if m is None else float(E))
+    if not cfg.has_decode:
+        # an encoder: the model, the serving loop and the launcher refuse
+        # its decode by name, as the JAX package's do
+        no_prompts = torch.zeros((B, PROMPT_LEN), dtype=torch.int32, device="cuda")
+        refused = [refusal(lambda: lm.init_cache(cfg, B, 8, "cuda"), ValueError),
+                   refusal(lambda: generate(cfg, params, no_prompts, DECODER_NEW_TOKENS),
+                           ValueError),
+                   refusal(lambda: serve_main(["--arch", arch, "--full"]), SystemExit)]
+        check(all("no decode step" in r and arch in r for r in refused),
+              f"{arch}'s decode refused by name: {refused}")
+        result.update(decode_refused=refused)
+    else:
+        # decode as repro_torch.launch.serve does it, timed at the published
+        # config, where a decode step never drops a unit (a step's k units of
+        # a token go to k experts, at most B a bin of 8 or more). Against
+        # prefill of the same prompts with a MoE layer's capacity factor at
+        # E, where no unit can drop in either (the published factor drops
+        # others in a prefill of B * 16 tokens than in a decode step). A
+        # vision model decodes tokens only: its prompt is text, and the
+        # prefill of the same prompt after no patches is its reference
+        prompts = batch["tokens"][:, :PROMPT_LEN].contiguous()
+        gap_batch = {"tokens": prompts}
+        if "patches" in batch:
+            gap_batch["patches"] = batch["patches"][:, :0]
+        cfg_gap = cfg if m is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(m, capacity_factor=float(E)))
+        moe_module.moe_apply = moe_recording
+        try:
+            loads.clear()
+            dec = generate(cfg, params, prompts, DECODER_NEW_TOKENS)
+            decode_drops = sum(drops(loads)) if m is not None else 0
+            loads.clear()
+            want = make_prefill_step(cfg_gap, ServeConfig())(params, gap_batch).float()
+            dec_gap = generate(cfg_gap, params, prompts, 1)
+            gap_drops = sum(drops(loads)) if m is not None else 0
+        finally:
+            moe_module.moe_apply = originals[1]
+        check(bool(torch.isfinite(dec["logits"]).all()), "decode logits finite")
+        check(decode_drops == 0, f"decode steps drop no unit ({decode_drops})")
+        check(gap_drops == 0, f"no unit dropped in the prefill/decode check ({gap_drops})")
+        gap = float((dec_gap["logits"].float() - want).abs().max())
+        want_max = float(want.abs().max())
+        check(gap <= GAP_TOL_BF16 * want_max,
+              f"bf16 prefill vs decode logits: gap {gap}, largest logit {want_max}")
+        steps, decode_s = dec["logits"].shape[1], dec["seconds"]
+        del dec, dec_gap, want
+        result.update(decode_batch=B, prompt_len=PROMPT_LEN, new_tokens=DECODER_NEW_TOKENS,
+                      decode_steps=steps, decode_s=decode_s,
+                      decode_tokens_per_s=B * steps / decode_s,
+                      decode_ms_per_step=decode_s / steps * 1e3, decode_dropped=decode_drops,
+                      prefill_decode_gap_bf16=gap, prefill_logit_max_abs_bf16=want_max,
+                      gap_tol_bf16=GAP_TOL_BF16 * want_max,
+                      gap_capacity_factor=None if m is None else float(E),
+                      gap_prompt="text, no patches" if "patches" in batch else "tokens")
 
-    if m is not None:
-        # the host syncs of the checks on the keys and on the pack's order
-        # (two per MoE layer): the same decode and prefill with them and
-        # without, in turn (the checks stay in the port; this only
-        # measures them)
-        def decode_ms_per_step():
-            return generate(cfg, params, prompts[:, :4], 12)["seconds"] / 15 * 1e3
+        if m is not None:
+            # the host syncs of the checks on the keys and on the pack's order
+            # (two per MoE layer): the same decode and prefill with them and
+            # without, in turn (the checks stay in the port; this only
+            # measures them)
+            def decode_ms_per_step():
+                return generate(cfg, params, prompts[:, :4], 12)["seconds"] / 15 * 1e3
 
-        def prefill_seconds():
-            t0 = time.perf_counter()
-            prefill(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
+            def prefill_seconds():
+                t0 = time.perf_counter()
+                prefill(params, batch)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
 
-        def unchecked(fn):
-            binning.check_keys = pack_kernel.check_pack = lambda *a, **kw: None
-            try:
-                return fn()
-            finally:
-                binning.check_keys = _checks.check_keys
-                pack_kernel.check_pack = _checks.check_pack
+            def unchecked(fn):
+                binning.check_keys = pack_kernel.check_pack = lambda *a, **kw: None
+                try:
+                    return fn()
+                finally:
+                    binning.check_keys = _checks.check_keys
+                    pack_kernel.check_pack = _checks.check_pack
 
-        sync_cost = {"decode_ms_per_step": [], "decode_ms_per_step_unchecked": [],
-                     "prefill_s": [], "prefill_s_unchecked": []}
-        for _ in range(2):
-            sync_cost["decode_ms_per_step"].append(decode_ms_per_step())
-            sync_cost["decode_ms_per_step_unchecked"].append(unchecked(decode_ms_per_step))
-            sync_cost["prefill_s"].append(prefill_seconds())
-            sync_cost["prefill_s_unchecked"].append(unchecked(prefill_seconds))
-        # the per-call bf16 copies of one MoE layer's f32 expert and shared
-        # weights
-        copies = [p.we_gate, p.we_up, p.we_down, p.shared.w_gate, p.shared.w_up,
-                  p.shared.w_down]
-        result.update(check_sync_cost=sync_cost, expert_weight_copy_ms_per_layer=time_ms(
-            lambda: [w.to(cfg.compute_dtype) for w in copies], 5))
+            sync_cost = {"decode_ms_per_step": [], "decode_ms_per_step_unchecked": [],
+                         "prefill_s": [], "prefill_s_unchecked": []}
+            for _ in range(2):
+                sync_cost["decode_ms_per_step"].append(decode_ms_per_step())
+                sync_cost["decode_ms_per_step_unchecked"].append(unchecked(decode_ms_per_step))
+                sync_cost["prefill_s"].append(prefill_seconds())
+                sync_cost["prefill_s_unchecked"].append(unchecked(prefill_seconds))
+            # the per-call bf16 copies of one MoE layer's f32 expert and shared
+            # weights
+            copies = [p.we_gate, p.we_up, p.we_down, p.shared.w_gate, p.shared.w_up,
+                      p.shared.w_down]
+            result.update(check_sync_cost=sync_cost, expert_weight_copy_ms_per_layer=time_ms(
+                lambda: [w.to(cfg.compute_dtype) for w in copies], 5))
+
     emit({**result, "ok": True})
     emit(profile)
 
     # timing at the prefill's shapes, launching into the outputs above
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
-    work = [(flash_row, flash, lambda: flash_kernel.launch(flash_out, q, kk, v, causal=True),
+    work = [(flash_row, flash, lambda: flash_kernel.launch(flash_out, q, kk, v, causal=causal),
              flash_plain,
              lambda: torch.nn.functional.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True),
-             flash_flops(q.shape[0], q.shape[1], kk.shape[1], q.shape[2], q.shape[3]),
+                 qt, kt, vt, is_causal=causal, enable_gqa=True),
+             flash_flops(q.shape[0], q.shape[1], kk.shape[1], q.shape[2], q.shape[3], causal),
              2 * (2 * q.numel() + kk.numel() + v.numel()), flash_cmp["max_abs_err"],
              "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:68",
              "torch.nn.functional.scaled_dot_product_attention")]
@@ -1371,13 +1479,14 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str) -> list:
         ms = time_ms(run, TIMED_RUNS)
         rows.append({
             "name": name, "route": "cuda", "symbol": kern.symbol, "config": arch,
-            "path": phase.replace("_serve", "_prefill"),
+            "path": f"{base}_prefill", "layers": cfg.num_layers,
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": launches[kern.symbol], "max_abs_err": err,
             "ms": ms, "plain_ms": time_ms(plain, 5, warmup=1), "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": time_ms(library, TIMED_RUNS),
             "library_call": lib, "bytes": nbytes, "ops": flops,
             "tflop_s": flops / ms / 1e9, "gb_s": nbytes / ms / 1e6})
+    rows[0].update(causal=causal, **flash_order)
     # the timed launches rewrote the outputs; they must still be right
     torch.cuda.synchronize()
     check(flash_compare(flash_out, flash_plain())["ok"],
@@ -2219,6 +2328,8 @@ def main(argv=None) -> int:
                           "flash_attention_mla")
     rows += deepseek_v2_lite_ep(args.seed)
     rows += decoder_serve(args.seed, "gemma-2b", "gemma_2b_serve", "flash_attention_gemma")
+    for arch, phase, row, layers in NEW_SERVE_PHASES:
+        rows += decoder_serve(args.seed, arch, phase, row, layers)
     rows += kernel_grads(args.seed)
     rows += deepseek_v2_lite_train(args.seed)
     emit({"kernels": rows})

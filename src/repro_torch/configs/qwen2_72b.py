@@ -1,0 +1,31 @@
+"""qwen2-72b [dense]: 80L d=8192 64H (GQA kv=8) d_ff=29568 vocab=152064.
+
+GQA with QKV bias [arXiv:2407.10671; hf]."""
+
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b",
+    kind="decoder",
+    num_layers=80,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+    source="arXiv:2407.10671",
+)
+
+SMOKE = ModelConfig(
+    name="qwen2-72b-smoke",
+    kind="decoder",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=2,
+    d_ff=128,
+    vocab_size=128,
+    qkv_bias=True,
+)

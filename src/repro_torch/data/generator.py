@@ -1,13 +1,15 @@
-"""Synthetic LM token batches for training, the port of the text branch
-of ``repro.data.generator.lm_batch_stream``.
+"""Synthetic LM batches for training, the port of
+``repro.data.generator.lm_batch_stream``.
 
 Each step's batch is drawn from its own ``numpy.random.Generator``,
 seeded by (seed, step), so a restart replays the same batches. The JAX
 package draws from ``jax.random.key(step)``, whose stream cannot be
-reproduced here: the two packages give different tokens for a step, and
-parity tests feed both the same numpy batch. The audio and vision
-branches come with the multimodal frontends, which the port does not run
-yet.
+reproduced here: the two packages give different values for a step, and
+parity tests feed both the same numpy batch. The shapes, dtypes and
+layout are the JAX package's: text batches of tokens and their shifted
+labels; for the stub frontends bf16 embeddings of ``d_model`` (audio
+``frames``; vision ``patches`` before the tokens, whose labels are
+``IGNORE`` over the patch positions).
 """
 
 from __future__ import annotations
@@ -17,20 +19,48 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from repro_torch.training.train_step import IGNORE
+
 
 def lm_batch_stream(vocab_size: int, batch: int, seq: int, *, multimodal=None,
                     d_model: int = 0, seed: int = 0,
                     device="cuda") -> Callable[[int], Dict[str, torch.Tensor]]:
-    """Returns batch_fn(step) -> {"tokens", "labels"}: (batch, seq) int32
-    each, the labels the tokens shifted by one (a draw of seq + 1 tokens
-    a row), on ``device``."""
-    if multimodal is not None:
-        raise ValueError(f"the port has no {multimodal.kind!r} frontend yet; "
-                         f"lm_batch_stream draws text batches only")
+    """Returns batch_fn(step) -> the step's batch on ``device``:
+
+    * text: {"tokens", "labels"}, (batch, seq) int32 each, the labels the
+      tokens shifted by one (a draw of seq + 1 tokens a row);
+    * audio: {"frames": (batch, seq, d_model) bf16, "labels": (batch, seq)};
+    * vision (P = ``multimodal.num_patches``): {"tokens": (batch, seq - P),
+      "patches": (batch, P, d_model) bf16, "labels": (batch, seq)} with
+      the labels ``IGNORE`` over the first P positions (no loss on
+      patches).
+
+    The embeddings are standard normal, the tokens and labels uniform
+    over the vocabulary."""
+    kind = None if multimodal is None else multimodal.kind
+    if kind not in (None, "audio", "vision"):
+        raise ValueError(f"the port has no {kind!r} frontend; lm_batch_stream "
+                         f"draws text, audio and vision batches")
+
+    def ints(rng, shape):
+        return torch.from_numpy(rng.integers(0, vocab_size, shape, dtype=np.int32)).to(device)
+
+    def embeddings(rng, shape):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(x).to(device).to(torch.bfloat16)
 
     def batch_fn(step: int) -> Dict[str, torch.Tensor]:
         rng = np.random.default_rng((seed, step))
-        toks = torch.from_numpy(rng.integers(0, vocab_size, (batch, seq + 1),
-                                             dtype=np.int32)).to(device)
+        if kind == "audio":
+            return {"frames": embeddings(rng, (batch, seq, d_model)),
+                    "labels": ints(rng, (batch, seq))}
+        if kind == "vision":
+            P = multimodal.num_patches
+            tokens = ints(rng, (batch, seq - P))
+            patches = embeddings(rng, (batch, P, d_model))
+            labels = ints(rng, (batch, seq))
+            labels[:, :P] = IGNORE
+            return {"tokens": tokens, "patches": patches, "labels": labels}
+        toks = ints(rng, (batch, seq + 1))
         return {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
     return batch_fn

@@ -6,7 +6,8 @@ Batched autoregressive decode with the KV/state cache, as
 the decode step, then ``--tokens`` tokens are generated greedily.
 Parameters are drawn from ``--seed`` on ``--device`` (default ``cuda``);
 ``--smoke`` (default) takes the reduced config, ``--full`` the published
-one.
+one. An encoder (hubert-xlarge) has no decode step: the launcher
+refuses it by name, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ def generate(cfg, params, prompts: torch.Tensor, new_tokens: int, *,
     ``scfg`` (default ``ServeConfig()``) on ``mesh``, then generate
     ``new_tokens`` greedily. Returns the logits of every
     step (B, P + new_tokens - 1, V), the generated tokens (B, new_tokens)
-    and the seconds the loop took (the device synchronised)."""
+    and the seconds the loop took (the device synchronised). Decode takes
+    tokens only, with a vision frontend too; an encoder raises
+    ``ValueError``."""
     from repro_torch.models import lm
     from repro_torch.serving import ServeConfig, make_decode_step
 
@@ -63,8 +66,10 @@ def main(argv=None) -> dict:
     from repro_torch.models import lm
     from repro_torch.models.common import init_params
 
-    device = torch.device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if not cfg.has_decode:
+        raise SystemExit(f"{args.arch} is encoder-only (no decode step)")
+    device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(lm.LM(cfg, device=device), gen)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

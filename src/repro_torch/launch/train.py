@@ -3,8 +3,10 @@
 
 A plain loop over ``training.make_train_step``, as ``repro.launch.train``
 runs it: parameters drawn from seed 0 on ``--device`` (default ``cuda``),
-batches from ``data.lm_batch_stream``, the loss printed at the first and
-the last step. ``--smoke`` (default) takes the reduced config, ``--full``
+batches from ``data.lm_batch_stream`` (frames or patches for the
+configs with a stub frontend), the loss printed at the first and the
+last step. The default ``--arch`` is granite-3-2b, as in the JAX
+launcher. ``--smoke`` (default) takes the reduced config, ``--full``
 the published one. One device runs no mesh, so the blob gradient-sync
 modes take the plain step there, as the JAX launcher does on one device.
 
@@ -23,7 +25,7 @@ import torch
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="deepseek-v2-lite-16b")
+    ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -54,7 +56,9 @@ def main(argv=None) -> list:
                        microbatches=args.microbatches, shuffle=shuf,
                        grad_sync=args.grad_sync)
     step = make_train_step(cfg, tcfg)
-    batch_fn = lm_batch_stream(cfg.vocab_size, args.batch, args.seq, device=device)
+    batch_fn = lm_batch_stream(cfg.vocab_size, args.batch, args.seq,
+                               multimodal=cfg.multimodal, d_model=cfg.d_model,
+                               device=device)
     n_params = sum(p.numel() for p in params.parameters())
     print(f"arch={cfg.name} params={n_params:,} device={device}")
     t0 = time.perf_counter()

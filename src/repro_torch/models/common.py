@@ -167,6 +167,14 @@ class HybridConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MultimodalConfig:
+    """Stub modality frontend: the batch brings precomputed embeddings."""
+    kind: str = "vision"          # vision | audio
+    num_patches: int = 2880       # patches (vision) per example
+    frontend_dim: int = 0         # 0 => already projected to d_model
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     kind: str                      # decoder | encoder | ssm | hybrid
@@ -184,12 +192,11 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False      # gemma: scale embeddings by sqrt(d)
     causal: bool = True
-    # the multimodal sub-config comes with its slice
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     mla: Optional[MLAConfig] = None
     hybrid: Optional[HybridConfig] = None
-    multimodal: Optional[Any] = None
+    multimodal: Optional[MultimodalConfig] = None
     # numerics
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
@@ -201,9 +208,70 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Supports the long_500k decode shape (SSM / hybrid)."""
+        return self.kind in ("ssm", "hybrid")
+
+    @property
+    def has_decode(self) -> bool:
+        return self.kind != "encoder"
+
     def param_count(self) -> int:
         """Exact parameter count from the port's module tree, built on the
         meta device (no memory)."""
         from repro_torch.models import lm  # local import to avoid a cycle
         model = lm.LM(self, device="meta")
         return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Shape presets (the four input-shape cells of the JAX package)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    step: str                      # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.step == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def applicable_shapes(cfg: ModelConfig) -> list:
+    """The shape cells that apply to this architecture: no decode shape
+    for an encoder, long_500k for the sub-quadratic kinds only."""
+    out = []
+    for s in ALL_SHAPES:
+        if s.is_decode and not cfg.has_decode:
+            continue
+        if s.name == "long_500k" and not cfg.sub_quadratic:
+            continue
+        out.append(s)
+    return out
+
+
+def skipped_shapes(cfg: ModelConfig) -> list:
+    """(name, reason) of each shape cell that does not apply."""
+    names = {s.name for s in applicable_shapes(cfg)}
+    out = []
+    for s in ALL_SHAPES:
+        if s.name in names:
+            continue
+        if s.is_decode and not cfg.has_decode:
+            out.append((s.name, "encoder-only arch has no decode step"))
+        else:
+            out.append((s.name, "pure full-attention arch; long_500k needs "
+                                "sub-quadratic attention"))
+    return out

@@ -1,5 +1,5 @@
-"""Model assembly for the ``decoder``, ``ssm`` (Mamba2) and ``hybrid``
-(Zamba2) kinds, the port of ``repro.models.lm``.
+"""Model assembly for the ``decoder``, ``encoder``, ``ssm`` (Mamba2) and
+``hybrid`` (Zamba2) kinds, the port of ``repro.models.lm``.
 
 Where the JAX package stacks every layer's parameters on a leading
 ``layers`` axis and scans over it, the port holds one module per layer in
@@ -12,7 +12,19 @@ leading layers are ``dense_blocks``, whose MLP has width
 a decode cache of their own. The hybrid model runs
 groups of ``shared_block_every`` Mamba2 layers, each followed by the
 shared attention block on ``concat(x, x0) @ shared_in[g]``, with the
-residual ``x + y - z``.
+residual ``x + y - z``. The encoder kind runs the decoder's blocks with
+attention causal as ``cfg.causal`` (False for hubert) and has no decode
+step: ``cache_defs``, ``init_cache`` and ``decode_step`` raise for it.
+
+The stub frontends (``cfg.multimodal``) take precomputed embeddings, as
+in the JAX package (``_embed_inputs``): ``audio`` reads ``batch["frames"]``
+(B, S, d), cast to the compute dtype, plus sinusoidal positions;
+``vision`` puts ``batch["patches"]`` (B, P, d) before the embeddings of
+``batch["tokens"]``. As in the JAX package, RoPE still runs inside the
+encoder's attention on top of the sinusoidal positions, over the patch
+positions too, and the causal mask covers the patches; an audio model
+still holds an embedding table of ``vocab_size`` rows that it never reads
+for input. A vision model's decode step takes tokens only.
 
 Public surface:
   * ``LM(cfg, device="cuda")``                 - the parameters
@@ -35,11 +47,12 @@ its shared block. ``full`` keeps only the units' inputs
 keeps the outputs of the matrix products as well (a selective checkpoint
 of ``aten.mm`` and ``aten.bmm``, the twin of ``checkpoint_dots``).
 What the port does not run
-raises ``ValueError`` naming it: the ``encoder`` kind and the multimodal frontends, which come with
-later slices; a MoE layer or MLA outside the ``decoder`` kind, which the
-JAX package's ``ssm`` and ``hybrid`` kinds have no cache or layer for;
-and ``ssm.intra_bf16``: the JAX package then holds the intra-chunk
-tensors in bf16, and the port's SSD chunk computes in f32 only.
+raises ``ValueError`` naming it: a MoE layer or MLA outside the
+``decoder`` kind, which the JAX package's ``ssm`` and ``hybrid`` kinds
+have no cache or layer for; a multimodal kind other than ``audio`` and
+``vision``, which have no frontend; and ``ssm.intra_bf16``: the JAX
+package then holds the intra-chunk tensors in bf16, and the port's SSD
+chunk computes in f32 only.
 """
 
 from __future__ import annotations
@@ -59,7 +72,11 @@ from repro_torch.models.common import (ArraySpec, ModelConfig, ParamModule,
                                        zeros_tree)
 from repro_torch.shuffle.api import ShuffleConfig
 
-KINDS = ("decoder", "ssm", "hybrid")
+KINDS = ("decoder", "encoder", "ssm", "hybrid")
+#: the kinds whose layers are transformer blocks
+BLOCK_KINDS = ("decoder", "encoder")
+#: the stub frontends' modality kinds
+FRONTENDS = ("audio", "vision")
 DENSE = ShuffleConfig(mode="dense")
 REMAT = ("none", "dots", "full")
 #: the matrix products that remat "dots" keeps
@@ -69,15 +86,23 @@ _save_dots = functools.partial(create_selective_checkpoint_contexts,
 
 def _check_kind(cfg: ModelConfig) -> None:
     if cfg.kind not in KINDS:
-        raise ValueError(f"the port has no {cfg.kind!r} kind yet "
+        raise ValueError(f"the port has no {cfg.kind!r} kind "
                          f"({cfg.name}); it runs {KINDS}")
+    mm = cfg.multimodal
     unsupported = [name for name, on in (
         ("moe outside the decoder kind", cfg.moe is not None and cfg.kind != "decoder"),
         ("mla outside the decoder kind", cfg.mla is not None and cfg.kind != "decoder"),
         ("ssm.intra_bf16", cfg.ssm is not None and cfg.ssm.intra_bf16),
-        ("multimodal", cfg.multimodal is not None)) if on]
+        (f"multimodal kind {getattr(mm, 'kind', None)!r}",
+         mm is not None and mm.kind not in FRONTENDS)) if on]
     if unsupported:
-        raise ValueError(f"{cfg.name}: the port does not run {unsupported} yet")
+        raise ValueError(f"{cfg.name}: the port does not run {unsupported}")
+
+
+def _check_decode(cfg: ModelConfig) -> None:
+    _check_kind(cfg)
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name}: the {cfg.kind} kind has no decode step")
 
 
 def _dense_layers(cfg: ModelConfig) -> int:
@@ -111,16 +136,17 @@ class Block(ParamModule):
 
 
 class LM(ParamModule):
-    """The parameters of a ``decoder``, ``ssm`` or ``hybrid`` model, on
-    ``device`` (uninitialised: draw them with ``common.init_params``).
-    A decoder holds ``dense_blocks`` (empty unless the MoE config has
-    leading dense layers) and ``blocks``."""
+    """The parameters of a ``decoder``, ``encoder``, ``ssm`` or ``hybrid``
+    model, on ``device`` (uninitialised: draw them with
+    ``common.init_params``). A decoder or encoder holds ``dense_blocks``
+    (empty unless the MoE config has leading dense layers) and
+    ``blocks``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _check_kind(cfg)
         self.embed = L.Embedding(cfg, device)
-        if cfg.kind == "decoder":
+        if cfg.kind in BLOCK_KINDS:
             n_dense = _dense_layers(cfg)
             self.dense_blocks = nn.ModuleList(
                 Block(cfg, device, d_ff=cfg.moe.dense_d_ff) for _ in range(n_dense))
@@ -146,6 +172,43 @@ class LM(ParamModule):
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
+
+def _angles(S: int, d: int, device) -> torch.Tensor:
+    """(S, ceil(d / 2)) f32 angles ``pos / 10000 ** (2i / d)``. The power
+    is taken in f64 and rounded once to f32, so the angles have the JAX
+    package's bits (its f32 ``power`` is correctly rounded; torch's f32
+    ``pow`` is not)."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    return pos / torch.pow(10000.0, (dim / d).double()).float()
+
+
+def _sinusoidal(S: int, d: int, dtype, device) -> torch.Tensor:
+    """(S, d) sinusoidal positions: sin of the angles in the even
+    columns, cos of the first ``d // 2`` in the odd ones, in f32, cast to
+    ``dtype``. sin and cos are taken in f64 and rounded once to f32; the
+    JAX package's f32 sin and cos (the C library's) agree with that to
+    one f32 ulp."""
+    ang = _angles(S, d, device).double()
+    out = torch.zeros((S, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang).float()
+    out[:, 1::2] = torch.cos(ang[:, :d // 2]).float()
+    return out.to(dtype)
+
+
+def _embed_inputs(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:
+    """The input embeddings (B, S, d): the audio frontend's frames plus
+    sinusoidal positions, the vision frontend's patches before the
+    tokens' embeddings, or the tokens' embeddings."""
+    mm = cfg.multimodal
+    if mm is not None and mm.kind == "audio":
+        x = batch["frames"].to(cfg.compute_dtype)
+        return x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    tok = L.embed_apply(cfg, params.embed, batch["tokens"])
+    if mm is not None and mm.kind == "vision":
+        return torch.cat([batch["patches"].to(cfg.compute_dtype), tok], dim=1)
+    return tok
+
 
 def _ffn_apply(cfg: ModelConfig, p: Block, z: torch.Tensor, shuffle: ShuffleConfig,
                mesh=None):
@@ -191,17 +254,19 @@ def _remat(fn, policy: str):
 
 def forward(cfg: ModelConfig, params: LM, batch: dict, *, mesh=None,
             shuffle: ShuffleConfig = DENSE, remat: str = "none"):
-    """Full-sequence forward. batch {"tokens": (B, S)}. Returns
-    (logits (B, S, V), aux_loss): the sum of the MoE layers' aux losses,
-    0 for the other kinds. ``remat``: none | dots | full."""
+    """Full-sequence forward. batch {"tokens": (B, S)}; with the audio
+    frontend {"frames": (B, S, d)}, with the vision frontend {"patches":
+    (B, P, d), "tokens": (B, S - P)}. Returns (logits (B, S, V),
+    aux_loss): the sum of the MoE layers' aux losses, 0 for the other
+    kinds. ``remat``: none | dots | full."""
     _check_kind(cfg)
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
-    x = L.embed_apply(cfg, params.embed, batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.kind == "decoder":
+    if cfg.kind in BLOCK_KINDS:
         auxes = []
         for blk in (*params.dense_blocks, *params.blocks):
             x, a = _remat(functools.partial(_block_apply, cfg, blk, positions=positions,
@@ -236,7 +301,7 @@ def forward(cfg: ModelConfig, params: LM, batch: dict, *, mesh=None,
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """Decode-cache specs, stacked per layer as in the JAX package."""
-    _check_kind(cfg)
+    _check_decode(cfg)
     if cfg.kind == "decoder":
         n_dense = _dense_layers(cfg)
         mk = MLA.mla_cache_defs if cfg.mla is not None else A.attention_cache_defs
@@ -276,12 +341,13 @@ def _ssm_block_decode(cfg: ModelConfig, p: SSMBlock, x, cache: dict, layer: int,
 
 def decode_step(cfg: ModelConfig, params: LM, cache: dict, batch: dict, *,
                 mesh=None, shuffle: ShuffleConfig = DENSE):
-    """One-token decode. batch {"tokens": (B, 1), "pos": int}.
+    """One-token decode. batch {"tokens": (B, 1), "pos": int}: tokens
+    only, with the vision frontend too.
 
     Writes the new state of every layer into ``cache`` in place and
     returns (logits (B, 1, V), cache).
     """
-    _check_kind(cfg)
+    _check_decode(cfg)
     pos = int(batch["pos"])
     x = L.embed_apply(cfg, params.embed, batch["tokens"])
     if cfg.kind == "decoder":

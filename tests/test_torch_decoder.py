@@ -1,7 +1,9 @@
 """The port's ``decoder`` kind against the JAX package, at the smoke
 sizes of qwen2-moe (the MoE layer, q/k/v biases), deepseek-v2-lite (MLA,
-a leading dense layer, 8 experts top-2 and 2 shared) and gemma-2b
-(GeGLU, MQA, sqrt(d)-scaled tied embeddings), with the JAX package's
+a leading dense layer, 8 experts top-2 and 2 shared), gemma-2b (GeGLU,
+MQA, sqrt(d)-scaled tied embeddings), granite-3-2b (GQA, tied
+embeddings), starcoder2-3b (GELU with biases, q/k/v biases, rope theta
+1e5) and qwen2-72b (q/k/v biases, GQA, rope theta 1e6), with the JAX package's
 parameters loaded through ``repro_torch.interop.params_from_jax``: the
 parameter tree (``dense_blocks`` included), ``lm.forward`` with the
 flash branch taken, decode steps from a zero cache carried by
@@ -26,7 +28,8 @@ prefill's tokens must exceed ``MIN_KEPT``: half for qwen2-moe-smoke (6
 experts top-2, 2 MoE layers), a quarter for deepseek-v2-lite-smoke,
 whose 8 experts top-2 put the k-th and (k+1)-th probabilities closer
 (its seed-0 prefill flips at positions 18 and 29 of its two rows, at
-JAX margins under 1e-4), all of them for gemma-2b, which has no router.
+JAX margins under 1e-4), all of them for the dense configs, which have
+no router.
 """
 
 import dataclasses
@@ -44,13 +47,12 @@ import numpy as np
 from repro.configs import get_config as jax_get_config
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
-from repro.models.common import MultimodalConfig
 from repro.models.common import init_params as jax_init_params
 from repro.shuffle import api as japi
 from repro_torch.configs import get_config
 from repro_torch.interop import cache_from_jax, params_from_jax, to_numpy, to_torch
 from repro_torch.models import layers, lm
-from repro_torch.models.common import init_params
+from repro_torch.models.common import MultimodalConfig, init_params
 from repro_torch.shuffle import api
 
 ARCH = "qwen2-moe-a2.7b"
@@ -59,11 +61,12 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 FLIP_MARGIN = 1e-3
 DEEPSEEK, GEMMA = "deepseek-v2-lite-16b", "gemma-2b"
-MIN_KEPT = {ARCH: 0.5, DEEPSEEK: 0.25, GEMMA: 0.99}
+DENSE = ("granite-3-2b", "starcoder2-3b", "qwen2-72b")
+MIN_KEPT = {ARCH: 0.5, DEEPSEEK: 0.25, GEMMA: 0.99, **{a: 0.99 for a in DENSE}}
 # every arch in both dtypes; qwen2-moe's cases keep the ids they had
 # before the other archs came
 ARCH_DTYPES = [pytest.param(a, d, id=d if a == ARCH else f"{a}-{d}")
-               for a in (ARCH, DEEPSEEK, GEMMA) for d in ("float32", "bfloat16")]
+               for a in (ARCH, DEEPSEEK, GEMMA, *DENSE) for d in ("float32", "bfloat16")]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -335,7 +338,7 @@ def test_decode_writes_the_kv_cache_in_place():
 
 
 def test_cache_defs_match_jax():
-    for arch, n_leaves in ((ARCH, 2), (DEEPSEEK, 4), (GEMMA, 2)):
+    for arch, n_leaves in ((ARCH, 2), (DEEPSEEK, 4), (GEMMA, 2), *((a, 2) for a in DENSE)):
         jcfg, cfg = _configs("bfloat16", arch)
         jdefs = jlm.cache_defs(jcfg, 3, 20)
         defs = lm.cache_defs(cfg, 3, 20)
@@ -361,12 +364,36 @@ def test_the_decoder_without_moe_runs_the_mlp():
 @pytest.mark.parametrize("field,value,name", [
     ("kind", "ssm", "moe outside the decoder kind"),
     ("kind", "hybrid", "moe outside the decoder kind"),
-    ("kind", "encoder", "encoder"),
-    ("multimodal", MultimodalConfig(kind="audio"), "multimodal"),
-    ("multimodal", MultimodalConfig(), "multimodal")])
+    # the encoder kind runs (tests/test_torch_encoder.py), without a MoE layer
+    pytest.param("kind", "encoder", "moe outside the decoder kind",
+                 id="kind-encoder-encoder"),
+    # the stub frontends are audio and vision (test below)
+    pytest.param("multimodal", MultimodalConfig(kind="video"), "multimodal kind 'video'",
+                 id="multimodal-value3-multimodal"),
+    pytest.param("multimodal", MultimodalConfig(kind="text"), "multimodal kind 'text'",
+                 id="multimodal-value4-multimodal")])
 def test_what_the_decoder_does_not_run_raises_naming_it(field, value, name):
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), **{field: value})
     for call in (lambda: lm.LM(cfg, device="meta"), lambda: lm.cache_defs(cfg, 1, 4),
                  lambda: lm.forward(cfg, None, {})):
         with pytest.raises(ValueError, match=name):
             call()
+
+
+@pytest.mark.parametrize("kind", ["audio", "vision"])
+def test_the_moe_decoder_takes_the_stub_frontends(kind):
+    """qwen2-moe SMOKE with either frontend: frames, or 4 patches before
+    the tokens, give logits over the whole sequence; the decode step
+    takes tokens."""
+    _, cfg = _configs("float32", multimodal=MultimodalConfig(kind=kind, num_patches=4))
+    model = init_params(lm.LM(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 12, cfg.d_model)).astype(np.float32))
+    batch = ({"frames": x} if kind == "audio" else
+             {"patches": x[:, :4], "tokens": torch.from_numpy(_tokens(1, 8))})
+    logits, aux = lm.forward(cfg, model, batch)
+    assert logits.shape == (1, 12, cfg.vocab_size) and float(aux) > 0
+    assert bool(torch.isfinite(logits).all())
+    cache = lm.init_cache(cfg, 1, 2, device="cpu")
+    out, _ = lm.decode_step(cfg, model, cache, {"tokens": torch.tensor([[3]]), "pos": 0})
+    assert out.shape == (1, 1, cfg.vocab_size)

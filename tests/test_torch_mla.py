@@ -12,8 +12,13 @@ The JAX package's ``absorb=True`` path does not run in bf16 on the CPU
 (XLA's CPU runtime has no bf16 x bf16 -> f32 dot for its
 ``preferred_element_type`` products), so the port's bf16 absorbed decode
 is held against the JAX package's bf16 naive decode, the same attention
-with the products in another order; in f32 each path is held against its
-JAX twin.
+with the products in another order, and against an oracle of that path
+written in jnp (``_absorbed_oracle``): the JAX package's own bf16
+projections and cache update, then the products in f32, rounded to bf16
+where ``repro.models.mla.mla_decode`` rounds (``q_abs``, ``probs``,
+``ctx``, and the output ``out`` before ``wo``), held to one bf16 step of
+each output and of the cache. In f32 each path is held against its JAX
+twin.
 
 Tolerances (absolute), as for the other model layers
 (``tests/test_torch_zamba2.py``): f32 1e-4, the same math in another
@@ -21,6 +26,7 @@ order; bf16 1e-1, where the two frameworks round at different places.
 """
 
 import dataclasses
+import math
 from functools import partial
 
 import pytest
@@ -34,6 +40,7 @@ import numpy as np
 from repro.configs import get_config as jax_get_config
 from repro.models import lm as jlm
 from repro.models import mla as jmla
+from repro.models.attention import NEG_INF as JNEG_INF
 from repro.models.common import init_params as jax_init_params
 from repro_torch.configs import get_config
 from repro_torch.interop import cache_from_jax, params_from_jax, to_numpy, to_torch
@@ -118,6 +125,56 @@ def test_mla_decode_matches_jax(absorb, dtype):
     assert cache["c_kv"] is c_kv                                 # written in place
     for name in ("c_kv", "k_rope"):
         _close(cache[name], jcache[name], TOL[dtype])
+
+
+def _absorbed_oracle(jcfg, jp, x, cache, pos):
+    """``mla_decode(absorb=True)`` of the JAX package in bf16, written in
+    jnp: its bf16 projections (``_project``) and cache update, then each
+    product in f32 on the bf16 operands, rounded to bf16 at the points
+    where the JAX path rounds (``q_abs``, ``probs``, ``ctx``, and ``out``
+    before the output projection)."""
+    m, cd, f32 = jcfg.mla, jnp.bfloat16, jnp.float32
+
+    def dot(spec, a, b):
+        return jnp.einsum(spec, a.astype(cd).astype(f32), b.astype(cd).astype(f32))
+
+    q_nope, q_rope, c_new, k_rope_new = jmla._project(jcfg, jp, x, jnp.asarray([pos]))
+    c = cache["c_kv"].at[:, pos].set(c_new[:, 0].astype(cache["c_kv"].dtype))
+    kr = cache["k_rope"].at[:, pos].set(k_rope_new[:, 0, 0].astype(cache["k_rope"].dtype))
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_abs = dot("bqhe,rhe->bqhr", q_nope, jp["w_uk"]).astype(cd)
+    s = (dot("bqhr,bsr->bhqs", q_abs, c) + dot("bqhe,bse->bhqs", q_rope, kr)) * scale
+    s = jnp.where((jnp.arange(c.shape[1]) < pos + 1)[None, None, None], s, JNEG_INF)
+    probs = jax.nn.softmax(s, axis=-1).astype(cd)
+    ctx = dot("bhqs,bsr->bqhr", probs, c).astype(cd)
+    out = dot("bqhr,rhe->bqhe", ctx, jp["w_uv"])
+    y = dot("bshe,hed->bsd", out, jp["wo"]).astype(cd)
+    return y, {"c_kv": c, "k_rope": kr}
+
+
+def _bf16_steps(got, want) -> int:
+    """The largest distance, in bf16 steps, between two bf16 arrays."""
+    g = to_numpy(got).view(np.int16).astype(np.int64)
+    w = np.asarray(want).view(np.int16).astype(np.int64)
+    return int(np.abs(g - w).max())
+
+
+def test_bf16_absorbed_mla_decode_matches_a_jnp_oracle():
+    jcfg, cfg, jp, p = _setup("bfloat16")
+    B, steps = 2, 6
+    x = _x(cfg, B, steps)
+    jcache = jax_init_params(jmla.mla_cache_defs(jcfg, B, steps), jax.random.key(1))
+    cache = cache_from_jax(jax.tree.map(np.asarray, jcache), device="cpu")
+    oracle = jax.jit(partial(_absorbed_oracle, jcfg), static_argnums=3)
+    for t in range(steps):
+        xt = x[:, t:t + 1]
+        want, jcache = oracle(jp, jnp.asarray(xt, jnp.bfloat16), jcache, t)
+        got, cache = mla.mla_decode(cfg, p, to_torch(xt, "cpu").to(torch.bfloat16), cache, t,
+                                    absorb=True)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _bf16_steps(got, want) <= 1, t
+    for name in ("c_kv", "k_rope"):
+        assert _bf16_steps(cache[name], jcache[name]) <= 1, name
 
 
 def test_mla_decode_paths_agree_in_f32():

@@ -5,13 +5,18 @@
 (a) The loss function's gradients against ``jax.grad`` of JAX's
     ``make_loss_fn`` at SMOKE with f32 compute, for zamba2 (the flash
     branch and the SSD chunk), deepseek-v2-lite (MLA, the dense MoE
-    dispatch through the pack and unpack Functions) and qwen2-moe, each
-    under remat none, dots and full, and the remat units themselves;
+    dispatch through the pack and unpack Functions), qwen2-moe,
+    granite-3-2b (GQA, tied embeddings), hubert-xlarge (audio frames,
+    the non-causal flash branch) and llava-next-34b (patches before the
+    tokens, their labels ignored), each under remat none, dots and full,
+    and the remat units themselves;
 (b) ``cross_entropy``, ``schedule`` and ``adamw_update`` against JAX's,
     and the cases of ``tests/test_training.py``: microbatch accumulation,
     the ignore mask, clipping, a short run whose loss falls;
 (c) one train step's updated parameters against JAX's;
-(d) ``data.lm_batch_stream`` and the launcher on the CPU.
+(d) ``data.lm_batch_stream`` (text, and the audio and vision batches
+    against the JAX package's shapes, dtypes and ignore mask) and the
+    launcher on the CPU.
 
 JAX parameters come over through ``interop.params_from_jax``, and JAX
 gradient trees through the same function (they have the parameter
@@ -41,6 +46,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.configs import get_config as jax_get_config
+from repro.data import lm_batch_stream as jlm_batch_stream
 from repro.models import lm as jlm
 from repro.models.common import init_params as jax_init_params
 from repro.training import OptConfig as JOptConfig
@@ -56,7 +62,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import lm_batch_stream
 from repro_torch.interop import params_from_jax
 from repro_torch.models import lm
-from repro_torch.models.common import init_params
+from repro_torch.models.common import MultimodalConfig, init_params
 from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
                                   adamw_update, make_loss_fn, make_train_step)
 from repro_torch.training.optimizer import global_norm, schedule
@@ -64,10 +70,13 @@ from repro_torch.training.train_step import IGNORE, _grads, cross_entropy
 
 ROOT = Path(__file__).resolve().parents[1]
 GRAD_TOL = 2e-4
-ARCHS = {  # flash_min_seq 16 < S: zamba2's shared block takes the flash branch
+ARCHS = {  # flash_min_seq 16 < S: zamba2's shared block and hubert take the flash branch
     "zamba2-2.7b": {"flash_min_seq": 16},
     "deepseek-v2-lite-16b": {},
     "qwen2-moe-a2.7b": {},
+    "granite-3-2b": {},
+    "hubert-xlarge": {"flash_min_seq": 16},
+    "llava-next-34b": {},
 }
 B, S = 2, 40
 
@@ -106,6 +115,23 @@ def _torch_batch(tokens, labels):
     return {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
 
 
+def _arch_batch(cfg, seed=3):
+    """The arch's loss batch as numpy: tokens and labels (with ignored
+    positions), frames for the audio frontend, or patches before fewer
+    tokens for the vision one, with the patch positions' labels ignored
+    as ``lm_batch_stream`` makes them."""
+    tokens, labels = _batch(cfg.vocab_size, seed=seed)
+    kind = cfg.multimodal.kind if cfg.multimodal is not None else None
+    if kind is None:
+        return {"tokens": tokens, "labels": labels}
+    x = np.random.default_rng(seed + 1).standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    if kind == "audio":
+        return {"frames": x, "labels": labels}
+    P = cfg.multimodal.num_patches
+    labels[:, :P] = IGNORE
+    return {"tokens": tokens[:, P:], "patches": x[:, :P], "labels": labels}
+
+
 def _close_tree(cfg, got: dict, jtree, atol, rtol):
     """Each parameter's entry of ``got`` against the JAX tree's leaf."""
     want = params_from_jax(cfg, jtree, device="cpu")
@@ -126,9 +152,8 @@ def jax_grads():
     def get(arch, remat):
         if (arch, remat) not in cache:
             jcfg, _, jparams = _setup(arch)
-            tokens, labels = _batch(jcfg.vocab_size)
             loss_fn = jmake_loss_fn(jcfg, JTrainConfig(remat=remat))
-            batch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+            batch = {k: jnp.asarray(v) for k, v in _arch_batch(jcfg).items()}
             (loss, _), g = jax.jit(jax.value_and_grad(
                 lambda p: loss_fn(p, batch), has_aux=True))(jparams)
             cache[arch, remat] = float(loss), jax.tree.map(np.asarray, g)
@@ -143,7 +168,8 @@ def test_loss_gradients_match_jax(jax_grads, arch, remat):
     want_loss, want = jax_grads(arch, remat)
     params = params_from_jax(cfg, jparams, device="cpu")
     loss_fn = make_loss_fn(cfg, TrainConfig(remat=remat))
-    grads, metrics = _grads(loss_fn, params, _torch_batch(*_batch(cfg.vocab_size)), 1)
+    batch = {k: torch.from_numpy(v) for k, v in _arch_batch(cfg).items()}
+    grads, metrics = _grads(loss_fn, params, batch, 1)
     total = float(metrics["loss"] + metrics["aux_loss"])
     np.testing.assert_allclose(total, want_loss, rtol=1e-5)
     _close_tree(cfg, grads, want, GRAD_TOL, GRAD_TOL)
@@ -346,8 +372,40 @@ def test_lm_batch_stream_is_step_keyed_and_shifted():
     assert torch.equal(a["tokens"][:, 1:], a["labels"][:, :-1])
     assert torch.equal(a["tokens"], again["tokens"]) and not torch.equal(
         a["tokens"], b["tokens"])
+    # the stub frontends are audio and vision
     with pytest.raises(ValueError, match="frontend"):
-        lm_batch_stream(50, 3, 7, multimodal=jax_get_config("hubert-xlarge").multimodal)
+        lm_batch_stream(50, 3, 7, multimodal=MultimodalConfig(kind="video"))
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "llava-next-34b"])
+def test_lm_batch_stream_frontend_batches_have_the_jax_layout(arch):
+    """The audio and vision batches: the keys, shapes and dtypes of the
+    JAX package's, the patch positions' labels IGNORE and the others in
+    the vocabulary, step-keyed."""
+    cfg, jcfg = get_config(arch, smoke=True), jax_get_config(arch, smoke=True)
+    b, s = 3, 24
+    fn = lm_batch_stream(cfg.vocab_size, b, s, multimodal=cfg.multimodal,
+                         d_model=cfg.d_model, device="cpu", seed=1)
+    got, again = fn(0), fn(0)
+    want = jlm_batch_stream(jcfg.vocab_size, b, s, multimodal=jcfg.multimodal,
+                            d_model=jcfg.d_model)(0)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert tuple(got[k].shape) == w.shape, k
+        assert str(got[k].dtype).split(".")[-1] == np.dtype(w.dtype).name, k
+        assert torch.equal(got[k], again[k]), k
+    labels = got["labels"].numpy()
+    P = cfg.multimodal.num_patches if cfg.multimodal.kind == "vision" else 0
+    jlabels = np.asarray(want["labels"])
+    assert (labels[:, :P] == IGNORE).all() and (jlabels[:, :P] == -100).all()
+    assert ((labels[:, P:] >= 0) & (labels[:, P:] < cfg.vocab_size)).all()
+    assert ((jlabels[:, P:] >= 0) & (jlabels[:, P:] < cfg.vocab_size)).all()
+    emb = got["frames"] if P == 0 else got["patches"]
+    assert emb.dtype == torch.bfloat16 and 0.5 < float(emb.float().std()) < 1.5
+    # the batch trains: the loss of a step is finite
+    model = init_params(lm.LM(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    _, metrics = make_loss_fn(cfg, TrainConfig())(model, got)
+    assert bool(torch.isfinite(metrics["loss"]))
 
 
 def test_train_launcher_runs_on_the_cpu_and_its_loss_falls():

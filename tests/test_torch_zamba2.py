@@ -31,13 +31,13 @@ import numpy as np
 from repro.configs import get_config as jax_get_config
 from repro.models import lm as jlm
 from repro.models import ssm as jssm
-from repro.models.common import MLAConfig, MoEConfig, MultimodalConfig
+from repro.models.common import MLAConfig, MoEConfig
 from repro.models.common import init_params as jax_init_params
 from repro.shuffle.api import ShuffleConfig as JaxShuffleConfig
 from repro_torch.configs import get_config
 from repro_torch.interop import cache_from_jax, params_from_jax, to_numpy, to_torch
 from repro_torch.models import lm, ssm
-from repro_torch.models.common import init_params, zeros_tree
+from repro_torch.models.common import MultimodalConfig, init_params, zeros_tree
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -183,14 +183,25 @@ def test_cache_defs_match_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("mla", MLAConfig()), ("kind", "encoder"), ("moe", MoEConfig(8, 2, 96)),
-    ("multimodal", MultimodalConfig()), ("moe", MoEConfig(4, 1, 32))])
+    ("multimodal", MultimodalConfig(kind="video")), ("moe", MoEConfig(4, 1, 32))])
 def test_what_the_port_does_not_run_raises_naming_it(field, value):
     # MLA and a MoE layer run in the decoder kind only; the last case puts
-    # a MoE layer on the ssm kind (mamba2-130m), the others on the hybrid
+    # a MoE layer on the ssm kind (mamba2-130m), the others on the hybrid.
+    # The stub frontends are audio and vision. The encoder kind builds and
+    # runs the forward pass (the hybrid config's Mamba2 fields unread, as
+    # in the JAX package) and has no decode step.
     arch = "mamba2-130m" if value == MoEConfig(4, 1, 32) else "zamba2-2.7b"
     cfg = dataclasses.replace(get_config(arch, smoke=True), **{field: value})
-    for call in (lambda: lm.LM(cfg), lambda: lm.cache_defs(cfg, 1, 4),
-                 lambda: lm.forward(cfg, None, {})):
+    calls = [lambda: lm.cache_defs(cfg, 1, 4), lambda: lm.init_cache(cfg, 1, 4, "cpu")]
+    if field == "kind":
+        model = init_params(lm.LM(cfg, device="cpu"), torch.Generator().manual_seed(0))
+        logits, _ = lm.forward(cfg, model, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        assert logits.shape == (1, 4, cfg.vocab_size) and not hasattr(model, "shared_block")
+        calls.append(lambda: lm.decode_step(cfg, model, {}, {
+            "tokens": torch.zeros((1, 1), dtype=torch.int32), "pos": 0}))
+    else:
+        calls += [lambda: lm.LM(cfg), lambda: lm.forward(cfg, None, {})]
+    for call in calls:
         with pytest.raises(ValueError, match=str(value) if field == "kind" else field):
             call()
 
