@@ -7,7 +7,25 @@
 2. Builds the Hopper kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc``, one process per source, all started together (into
    ``build/repro_torch_kernels/``).
-3. Blob data plane: holds each blob kernel against its plain PyTorch
+3. ``engine``: BlobShuffle's engine layer, the port's copy of the JAX
+   package's ``core``, ``obs`` and ``cluster``, on the host (numpy and
+   Python on a virtual clock; no tensor, no kernel), through
+   ``repro_torch.launch.engine``. (a) The paper's deployment
+   (``SimConfig()``: 12 nodes x 2 instances, 216 partitions, 3 AZs) by
+   ``simulate_async`` with exactly-once commits and ingest batches of
+   1,024, cut to 1% of the offered 3.16 GiB/s and of the batch size for
+   10 virtual seconds (331,350 records of 1 KiB), the scale of the JAX
+   package's measured lane. (b) The training input's faulty elastic
+   engine (``FaultyStore`` over ``ExpressOneZoneStore``, 9 partitions
+   over 3 instances, a cooperative ``ElasticCluster`` with AZ 1 out at
+   0.30 s), fed 6,000 ShuffleBench records; it must rebalance. Each run
+   must deliver every produced record exactly once, in its partition.
+   Prints the summary (p50, p95, p99 and makespan in virtual seconds,
+   throughput, cost per GiB), the store's (and in (b) the cluster's and
+   faults') stats, the wall seconds on the host's clock and a
+   ``stable_hash64`` digest of the delivered records (a report, not a
+   gate; the JAX package's digest of the same run is in ``PERF.md``).
+4. Blob data plane: holds each blob kernel against its plain PyTorch
    version on the card, bit for bit, over payload dtypes, overflow,
    empty bins, ragged tiles and two rows-per-block values; then runs the
    deployment round trip through ``repro_torch.shuffle.api``: one second
@@ -17,7 +35,7 @@
    bit for bit, the codec round trip must equal its plain version bit for
    bit and lie within half a quantization step of each record. Its
    tensors are freed before the model loads.
-4. Model kernels: flash attention against its plain version at head dims
+5. Model kernels: flash attention against its plain version at head dims
    64, 80, 128 and 256, GQA, MQA, non-causal and ragged, in bf16 and f32
    (bf16 also at 16, 48 and 96, and 144, 176 and 192: the kinds of tail
    box at both kv tile sizes), each case through the kernel its dtype
@@ -37,7 +55,7 @@
    heads and a bf16 shape off the tensor-core contract (1e-4 atol and
    rtol, all four outputs), each case through the kernel its dtype and
    shape select, and ``ssd_scan_op`` against ``ssd_chunked``.
-5. Zamba2-2.7B at full width (54 layers, d 2560, parameters drawn on the
+6. Zamba2-2.7B at full width (54 layers, d 2560, parameters drawn on the
    card from the seed): ``make_prefill_step`` on 4 requests of 4,096
    tokens must launch the wgmma flash kernel 9 times (and no other flash
    kernel) and the tensor-core SSD chunk 54 times (and the CUDA-core one
@@ -51,7 +69,7 @@
    prompt must match the prefill logits of the same prompt (f32: 5e-3;
    bf16: a tenth of the largest logit). Prints prefill and decode
    tokens/s and peak memory.
-6. The ``decoder`` configs at full width, each once the last phase's
+7. The ``decoder`` configs at full width, each once the last phase's
    tensors are freed, parameters drawn on the card from the seed:
    qwen2-moe-a2.7b (24 layers, d 2048, 60 routed experts top-4 and 4
    shared, 14.3 G f32 parameters), deepseek-v2-lite-16b (27 layers of
@@ -95,7 +113,7 @@
    layer (non-causal for hubert), the flash kernel against its plain
    version on the first layer's q, k, v, and reports the item order
    the launcher's rule picks.
-7. deepseek-v2-lite-16b at full width once more, its MoE layers over the
+8. deepseek-v2-lite-16b at full width once more, its MoE layers over the
    ranks of a stacked mesh (``EP_MESH``: pod 2 x model 16, the EP domain
    of the JAX package's multi-pod production mesh, the data axis cut
    from 16 to 1), phase ``deepseek_v2_lite_ep``. ``make_prefill_step``
@@ -119,7 +137,7 @@
    tokens, each step's 4 tokens padded to the 32 ranks), timed, and
    within a tenth of the largest logit of prefill at a capacity factor
    of E.
-8. ``kernel_grads``: each autograd Function's gradients on the card
+9. ``kernel_grads``: each autograd Function's gradients on the card
    against torch autograd through its plain version, on the same seeded
    inputs, each case counting its launches: flash attention at B 1, S
    4,096, causal, bf16, at each serving head dim (``GRAD_FLASH_SHAPES``;
@@ -133,7 +151,7 @@
    bit, pack's bit for bit where ``order`` is a permutation and within
    one bf16 rounding of an f32 sum where each token's row repeats
    (top-6), each backward launching the other kernel once.
-9. ``deepseek_v2_lite_train``: deepseek-v2-lite-16b at published widths
+10. ``deepseek_v2_lite_train``: deepseek-v2-lite-16b at published widths
    with 3 of its 27 layers (``TRAIN_LAYERS``: the dense layer 0 and two
    MoE layers, 1.670 G f32 parameters drawn on the card), 4 x 4,096
    tokens in 2 microbatches, remat ``full``, bf16 compute, capacity
@@ -156,7 +174,7 @@
    those at the timed shape (``launches_at_timed_shape``: the forward's
    and the recompute's, 8; unpack's 12 also count pack's backward, an
    unpack of the same shape; unpack's backward is a pack at another).
-10. Prints one ``kernels`` line: per kernel its launches on its main path
+11. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
@@ -166,7 +184,7 @@
    the codec kernels, which no one call computes, where the same row
    gather is timed as ``bytes_reference_ms``, and for the SSD chunk).
    The flash and SSD rows name the kernel that ran (``symbol``). The
-   wgmma flash kernel has a row at each wide shape of phase 4 too
+   wgmma flash kernel has a row at each wide shape of phase 5 too
    (``flash_attention_wide``), whose path is one call of
    ``flash_attention_op`` at that shape (``path``; its launches are
    counted from 0 over that call alone), with the ``mma.sync`` kernel's
@@ -188,7 +206,7 @@
    pack and unpack at one microbatch's shapes, with their launches a
    step and, for pack and unpack, those at the timed shape) and the SSD
    chunk's (``path`` ``kernel_grads``) follow.
-11. Ends with ``{"ok": true, "device": {...}}``.
+12. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -349,6 +367,52 @@ def time_ms(fn, runs: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def engine(seed: int, smi: str) -> None:
+    """Phase ``engine`` (step 3 above): the two engine runs, each gated
+    on exactly-once delivery inside ``repro_torch.launch.engine``; the
+    kernels' launch counts, set to 0 before, must still be 0 after, and
+    the phase must load no module of ``jax`` or of the JAX package."""
+    from repro_torch.kernels.blob_codec import kernel as codec_kernel
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch import engine as engine_launch
+
+    kernels = (pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
+               codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, *ssd_kernel.KERNELS)
+    for k in kernels:
+        k.launches = 0
+    before = set(_foreign_modules())
+    clocks = {"nvidia_smi": smi, "clocks": {
+        "wall_s": "the host's clock",
+        "summary": "p50_s, p95_s, p99_s and makespan_s in virtual seconds, "
+                   "outputs of the engine's model, not the card's times"}}
+    paper = engine_launch.paper_run(seed)
+    check(paper["records_delivered_once"] == paper["records_produced"] > 0,
+          f"the paper run delivers every record once: {paper['records_produced']}")
+    emit({"phase": "engine_paper", **clocks,
+          "cut": f"offered load and batch size x {engine_launch.PAPER_SCALE} "
+                 f"(3.16 GiB/s -> 32.4 MiB/s), 10 virtual seconds of the 540 s window "
+                 f"(simulate_async's clamp): the scale of the JAX package's measured lane",
+          **paper, "ok": True})
+    elastic = engine_launch.faulty_elastic_run(seed)
+    check(elastic["records_delivered_once"] == elastic["records_produced"] > 0,
+          "the faulty elastic run delivers every record once")
+    check(elastic["rebalances"] >= 1, "the AZ outage rebalances the cluster")
+    emit({"phase": "engine_faulty_elastic", **clocks, **elastic, "ok": True})
+    launched = {k.symbol: k.launches for k in kernels}
+    check(not any(launched.values()), f"the engine launches no kernel: {launched}")
+    foreign = sorted(set(_foreign_modules()) - before)
+    check(not foreign, f"the engine loads no module of jax or the JAX package: {foreign[:5]}")
+
+
+def _foreign_modules() -> list:
+    """The loaded modules of ``jax``, ``jaxlib`` and the JAX package."""
+    return [n for n, m in sys.modules.items()
+            if m is not None and n.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
 def nvidia_smi() -> str:
@@ -1137,7 +1201,7 @@ def moe_layer_indexed(cfg, p, x):
     """``moe_apply``'s dense path as the JAX package writes it, with the
     index-based ``binning.scatter_to_bins``/``gather_from_bins`` where the
     port calls the pack and unpack ops: the plain version of the layer."""
-    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
     from repro_torch.shuffle import api, binning, dispatch
 
     m = cfg.moe
@@ -1153,7 +1217,7 @@ def moe_layer_indexed(cfg, p, x):
     eout = api._expert_ffn(p.we_gate, p.we_up, p.we_down, cfg.compute_dtype)(ebuf)
     y_units = binning.gather_from_bins(eout, pack)
     y = torch.einsum("tk,tkd->td", sel_w, y_units.reshape(T, m.top_k, d).float())
-    y = y.to(xt.dtype).reshape(B, S, d) + L.mlp_apply(cfg, p.shared, x)
+    y = y.to(xt.dtype).reshape(B, S, d) + MOE.shared_apply(cfg, p, x)
     return y.to(x.dtype), api._aux_loss(probs, pack.counts, U, E) * m.aux_loss_coef, pack.counts
 
 
@@ -2316,6 +2380,7 @@ def main(argv=None) -> int:
           "flags": list(_build.NVCC_FLAGS),
           "libraries": [str(p.relative_to(ROOT)) for p in libraries.values()]})
 
+    engine(args.seed, smi)
     kernel_phases(args.seed, (ROWS_PER_BLOCK, 128))
     rows = deployment(args.seed)
     torch.cuda.empty_cache()     # the deployment's tensors went with it

@@ -1,3 +1,4 @@
-from repro_torch.data.generator import lm_batch_stream
+from repro_torch.data.generator import (LoadGenerator, lm_batch_stream,
+                                        shufflebench_records)
 
-__all__ = ["lm_batch_stream"]
+__all__ = ["LoadGenerator", "lm_batch_stream", "shufflebench_records"]

@@ -1,7 +1,17 @@
-"""Synthetic LM batches for training, the port of
-``repro.data.generator.lm_batch_stream``.
+"""Data pipeline, the port of ``repro.data.generator``: the ShuffleBench
+load generator and synthetic LM batches for training.
 
-Each step's batch is drawn from its own ``numpy.random.Generator``,
+* ``shufflebench_records`` — the paper's benchmark workload: records with
+  random byte values; the key is the value's first 8 bytes (paper §5.1.1
+  step ii), the timestamp the record's index past ``t0_us``.
+* ``LoadGenerator`` — rate-capped generator (offered load above the
+  system's capacity).
+* ``lm_batch_stream`` — step-keyed synthetic token batches.
+
+The first two are the JAX package's code with ``Record`` taken from
+``repro_torch.core.records``: the same seed gives the same records.
+
+In ``lm_batch_stream`` each step's batch is drawn from its own ``numpy.random.Generator``,
 seeded by (seed, step), so a restart replays the same batches. The JAX
 package draws from ``jax.random.key(step)``, whose stream cannot be
 reproduced here: the two packages give different values for a step, and
@@ -14,12 +24,38 @@ labels; for the stub frontends bf16 embeddings of ``d_model`` (audio
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
+from repro_torch.core.records import Record
 from repro_torch.training.train_step import IGNORE
+
+
+def shufflebench_records(n: int, value_bytes: int = 1024, seed: int = 0,
+                         t0_us: int = 0) -> List[Record]:
+    rng = np.random.default_rng(seed)
+    out = []
+    vals = rng.bytes(n * value_bytes)
+    for i in range(n):
+        v = vals[i * value_bytes:(i + 1) * value_bytes]
+        out.append(Record(key=v[:8], value=v, timestamp_us=t0_us + i))
+    return out
+
+
+@dataclasses.dataclass
+class LoadGenerator:
+    """Per-instance generator emitting up to ``rate`` records/s."""
+    rate: float = 180_000.0
+    value_bytes: int = 1024
+    seed: int = 0
+
+    def window(self, t_start: float, t_end: float) -> List[Record]:
+        n = int((t_end - t_start) * self.rate)
+        return shufflebench_records(n, self.value_bytes, seed=self.seed,
+                                    t0_us=int(t_start * 1e6))
 
 
 def lm_batch_stream(vocab_size: int, batch: int, seq: int, *, multimodal=None,

@@ -12,9 +12,10 @@ leading layers are ``dense_blocks``, whose MLP has width
 a decode cache of their own. The hybrid model runs
 groups of ``shared_block_every`` Mamba2 layers, each followed by the
 shared attention block on ``concat(x, x0) @ shared_in[g]``, with the
-residual ``x + y - z``. The encoder kind runs the decoder's blocks with
-attention causal as ``cfg.causal`` (False for hubert) and has no decode
-step: ``cache_defs``, ``init_cache`` and ``decode_step`` raise for it.
+residual ``x + y - z``. The encoder kind runs the decoder's blocks, MLA,
+MoE and leading dense layers included, with attention causal as
+``cfg.causal`` (False for hubert), and has no decode step:
+``cache_defs``, ``init_cache`` and ``decode_step`` raise for it.
 
 The stub frontends (``cfg.multimodal``) take precomputed embeddings, as
 in the JAX package (``_embed_inputs``): ``audio`` reads ``batch["frames"]``
@@ -48,8 +49,8 @@ keeps the outputs of the matrix products as well (a selective checkpoint
 of ``aten.mm`` and ``aten.bmm``, the twin of ``checkpoint_dots``).
 What the port does not run
 raises ``ValueError`` naming it: a MoE layer or MLA outside the
-``decoder`` kind, which the JAX package's ``ssm`` and ``hybrid`` kinds
-have no cache or layer for; a multimodal kind other than ``audio`` and
+``decoder`` and ``encoder`` kinds, which the JAX package's ``ssm`` and
+``hybrid`` kinds have no cache or layer for; a multimodal kind other than ``audio`` and
 ``vision``, which have no frontend; and ``ssm.intra_bf16``: the JAX
 package then holds the intra-chunk tensors in bf16, and the port's SSD
 chunk computes in f32 only.
@@ -90,8 +91,10 @@ def _check_kind(cfg: ModelConfig) -> None:
                          f"({cfg.name}); it runs {KINDS}")
     mm = cfg.multimodal
     unsupported = [name for name, on in (
-        ("moe outside the decoder kind", cfg.moe is not None and cfg.kind != "decoder"),
-        ("mla outside the decoder kind", cfg.mla is not None and cfg.kind != "decoder"),
+        ("moe outside the decoder and encoder kinds",
+         cfg.moe is not None and cfg.kind not in BLOCK_KINDS),
+        ("mla outside the decoder and encoder kinds",
+         cfg.mla is not None and cfg.kind not in BLOCK_KINDS),
         ("ssm.intra_bf16", cfg.ssm is not None and cfg.ssm.intra_bf16),
         (f"multimodal kind {getattr(mm, 'kind', None)!r}",
          mm is not None and mm.kind not in FRONTENDS)) if on]

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -34,7 +35,18 @@ class MoE(ParamModule):
         if m.num_shared:
             # the JAX package's shared w_gate/w_up/w_down, with the SwiGLU
             # MLP's fan-in (d, then num_shared * d_e)
-            self.shared = L.MLP(cfg, m.num_shared * de, device)
+            self.shared = L.MLP(_swiglu(cfg), m.num_shared * de, device)
+
+
+def _swiglu(cfg: ModelConfig) -> ModelConfig:
+    """The shared experts are a SwiGLU whatever ``cfg.mlp`` (a GELU
+    encoder's too), as in the JAX package."""
+    return cfg if cfg.mlp == "swiglu" else dataclasses.replace(cfg, mlp="swiglu")
+
+
+def shared_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts' SwiGLU on x (B, S, d), in the compute dtype."""
+    return L.mlp_apply(_swiglu(cfg), p.shared, x)
 
 
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
@@ -73,5 +85,5 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
                 "dcn_bytes": dg.dcn_bytes}
     y = y.reshape(B, S, d)
     if m.num_shared:
-        y = y + L.mlp_apply(cfg, p.shared, x)
+        y = y + shared_apply(cfg, p, x)
     return y.to(x.dtype), aux * m.aux_loss_coef, diag

@@ -362,10 +362,14 @@ def test_the_decoder_without_moe_runs_the_mlp():
 
 
 @pytest.mark.parametrize("field,value,name", [
-    ("kind", "ssm", "moe outside the decoder kind"),
-    ("kind", "hybrid", "moe outside the decoder kind"),
-    # the encoder kind runs (tests/test_torch_encoder.py), without a MoE layer
-    pytest.param("kind", "encoder", "moe outside the decoder kind",
+    # the ids are those the cases had when MoE ran in the decoder kind only
+    pytest.param("kind", "ssm", "moe outside the decoder and encoder kinds",
+                 id="kind-ssm-moe outside the decoder kind"),
+    pytest.param("kind", "hybrid", "moe outside the decoder and encoder kinds",
+                 id="kind-hybrid-moe outside the decoder kind"),
+    # the encoder kind runs MoE (tests/test_torch_encoder.py); it has no
+    # decode step
+    pytest.param("kind", "encoder", "the encoder kind has no decode step",
                  id="kind-encoder-encoder"),
     # the stub frontends are audio and vision (test below)
     pytest.param("multimodal", MultimodalConfig(kind="video"), "multimodal kind 'video'",
@@ -374,8 +378,15 @@ def test_the_decoder_without_moe_runs_the_mlp():
                  id="multimodal-value4-multimodal")])
 def test_what_the_decoder_does_not_run_raises_naming_it(field, value, name):
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), **{field: value})
-    for call in (lambda: lm.LM(cfg, device="meta"), lambda: lm.cache_defs(cfg, 1, 4),
-                 lambda: lm.forward(cfg, None, {})):
+    calls = (lambda: lm.LM(cfg, device="meta"), lambda: lm.cache_defs(cfg, 1, 4),
+             lambda: lm.forward(cfg, None, {}))
+    if value == "encoder":
+        # a MoE encoder builds; its cache and decode step are refused
+        assert len(lm.LM(cfg, device="meta").blocks) == cfg.num_layers
+        batch = {"tokens": torch.zeros((1, 1), dtype=torch.int32), "pos": 0}
+        calls = (lambda: lm.cache_defs(cfg, 1, 4), lambda: lm.init_cache(cfg, 1, 4, "cpu"),
+                 lambda: lm.decode_step(cfg, None, {}, batch))
+    for call in calls:
         with pytest.raises(ValueError, match=name):
             call()
 

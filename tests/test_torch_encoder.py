@@ -17,6 +17,20 @@ package's parameters loaded through ``repro_torch.interop.params_from_jax``.
   64; non-causal for hubert), f32 1e-4 and bf16 1e-1 absolute on the
   logits, the tolerances of ``tests/test_torch_decoder.py``. There is no
   router, so nothing is left out.
+* Two SMOKE encoders with the decoder's FFN and attention variants,
+  hubert SMOKE with qwen2-moe SMOKE's MoE layer and with deepseek-v2-lite
+  SMOKE's MLA and MoE (one leading dense layer): ``lm.forward``'s logits
+  at the same tolerances, and the aux loss at those of
+  ``tests/test_torch_decoder.py`` (relative 1e-5 in f32, 1e-2 in bf16).
+  In bf16 a router can pick another expert where two tie within the
+  packages' rounding; as in the decoder test, such a flip must be a near
+  tie in the JAX package (``FLIP_MARGIN``) and the tokens it reaches are
+  left out: through the capacity, the later tokens it moves out of or
+  into an expert's bin as well. Attention is not causal here: a token
+  changed in the last MoE layer reaches itself only, one in an earlier
+  layer its whole row. At least ``MIN_KEPT`` of the tokens are compared
+  (seed 5 keeps half of the MoE encoder's, whose first layer flips in
+  one row, and 123 of the MLA encoder's 128). In f32 there is no flip.
 * llava's decode steps (tokens only) against the JAX package's.
 * hubert's ``cache_defs``, ``init_cache``, ``decode_step``, the decode
   step of ``repro_torch.serving``, ``launch.serve.generate`` and the
@@ -49,11 +63,16 @@ from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.models.common import init_params
 from repro_torch.serving import ServeConfig, make_decode_step, make_prefill_step
+from repro_torch.shuffle import api, dispatch
+from repro.shuffle import api as japi
 
 HUBERT, LLAVA = "hubert-xlarge", "llava-next-34b"
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 1e-4, "bfloat16": 1e-1}
+AUX_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FLIP_MARGIN = 1e-3
+MIN_KEPT = 0.25
 B, S = 2, 64
 
 
@@ -171,6 +190,118 @@ def test_the_encoder_is_not_causal_and_reads_no_token_table():
         model.embed.tok.normal_()
     again, _ = lm.forward(cfg, model, {"frames": frames})
     assert torch.equal(again, logits)
+
+
+#: the SMOKE config whose MoE (and MLA) config each MoE encoder takes
+MOE_SOURCES = {"moe": "qwen2-moe-a2.7b", "mla": "deepseek-v2-lite-16b"}
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """Record every router call of both packages: the JAX package's
+    selected experts and probabilities (by an ordered callback, through
+    ``jit`` and ``scan``), and the port's selected experts."""
+    jrec, trec = [], []
+    jroute, troute = japi._route, api._route
+
+    def jax_recording(*args, **kwargs):
+        out = jroute(*args, **kwargs)
+        jax.debug.callback(lambda s, p: jrec.append((np.asarray(s), np.asarray(p))),
+                           out[1], out[2], ordered=True)
+        return out
+
+    def port_recording(*args, **kwargs):
+        out = troute(*args, **kwargs)
+        trec.append(out[1].numpy())
+        return out
+
+    monkeypatch.setattr(japi, "_route", jax_recording)
+    monkeypatch.setattr(api, "_route", port_recording)
+    return jrec, trec
+
+
+def _within_capacity(sel, E, cap):
+    """Each token's experts that keep its unit: units in token-major order,
+    an expert's first ``cap`` units kept, the overflow dropped (the dense
+    dispatch's stable bin packing)."""
+    seen = np.zeros(E, np.int64)
+    kept = []
+    for row in sel:
+        mine = set()
+        for e in row:
+            if seen[e] < cap:
+                mine.add(int(e))
+            seen[e] += 1
+        kept.append(frozenset(mine))
+    return kept
+
+
+def _kept(jrec, trec, moe, shape):
+    """The (row, position) mask of the tokens that no router flip reaches,
+    with attention not causal. A token whose experts differ between the
+    packages must be a near tie in the JAX package unless its row is
+    already reached. Through the capacity, a flip can also move later
+    tokens of either row out of (or into) an expert's bin. A token whose
+    kept experts differ reaches its whole row in the later layers, and
+    only itself in the last MoE layer."""
+    jax.effects_barrier()
+    assert len(jrec) == len(trec) and trec
+    keep = np.ones(shape, bool)
+    reached = set()
+    E, k = moe.num_experts, moe.top_k
+    cap = dispatch._cap(shape[0] * shape[1] * k / E, moe.capacity_factor)
+    for i, ((jsel, jprobs), tsel) in enumerate(zip(jrec, trec)):
+        flip = (np.sort(jsel, axis=1) != np.sort(tsel, axis=1)).any(axis=1).reshape(shape)
+        p = -np.sort(-jprobs, axis=1)
+        margin = (p[:, k - 1] - p[:, k]).reshape(shape)
+        moved = np.array([a != b for a, b in zip(_within_capacity(jsel, E, cap),
+                                                 _within_capacity(tsel, E, cap))])
+        rows = set()
+        for b, s in zip(*np.nonzero(flip | moved.reshape(shape))):
+            if b in reached:
+                continue
+            if flip[b, s]:
+                assert margin[b, s] < FLIP_MARGIN, (i, b, s, margin[b, s])
+            keep[b, s] = False
+            rows.add(b)
+        if i < len(trec) - 1:
+            for b in rows:
+                keep[b] = False
+        reached |= rows
+    return keep
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", list(MOE_SOURCES))
+def test_moe_and_mla_encoders_match_jax(variant, dtype, routes):
+    """hubert SMOKE with qwen2-moe SMOKE's MoE layer (2 MoE layers), or
+    with deepseek-v2-lite SMOKE's MLA and MoE (a dense layer, then a MoE
+    layer), through the flash branch."""
+    jsrc = jax_get_config(MOE_SOURCES[variant], smoke=True)
+    src = get_config(MOE_SOURCES[variant], smoke=True)
+    jcfg, cfg = _configs(HUBERT, dtype, flash_min_seq=16)
+    jcfg = dataclasses.replace(jcfg, moe=jsrc.moe, mla=jsrc.mla)
+    cfg = dataclasses.replace(cfg, moe=src.moe, mla=src.mla)
+    assert cfg.kind == "encoder" and not cfg.causal and cfg.mlp == "gelu"
+    jparams = _jax_params(jcfg)
+    model = params_from_jax(cfg, jparams, device="cpu")
+    n_dense = cfg.moe.first_dense_layers
+    assert (len(model.dense_blocks), len(model.blocks)) == (n_dense, cfg.num_layers - n_dense)
+    batch = _batch(cfg)
+    want, aux_want = jax.jit(partial(jlm.forward, jcfg))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, aux = lm.forward(cfg, model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert got.shape == want.shape == (B, S, cfg.vocab_size) and got.dtype == cfg.compute_dtype
+    jrec, trec = routes
+    assert len(trec) == cfg.num_layers - n_dense
+    keep = _kept(jrec, trec, cfg.moe, (B, S))
+    if dtype == "float32":
+        assert keep.all()
+    assert keep.mean() >= MIN_KEPT, keep.mean()
+    np.testing.assert_allclose(to_numpy(got.float())[keep],
+                               np.asarray(want, np.float32)[keep], atol=TOL[dtype], rtol=0)
+    assert aux.dtype == torch.float32 and float(aux_want) > 0
+    np.testing.assert_allclose(float(aux), float(aux_want), rtol=AUX_RTOL[dtype])
 
 
 def test_prefill_step_takes_the_frontend_batches():

@@ -1,0 +1,91 @@
+"""The port's engine layer is the JAX package's, copied: every ``.py``
+file under ``repro/core`` (``formats/`` and ``stores/`` included),
+``repro/obs`` and ``repro/cluster`` has its twin at the same relative path
+under ``repro_torch``, equal byte for byte once the package name is
+rewritten, and no other file is there. ``core/store.py``, the
+``repro.core.store`` import shim, is left out: the port never had that
+import path.
+
+The rewrite rule, the one edit a copy gets: every ``repro.`` that does
+not follow a word character or a dot becomes ``repro_torch.``, and
+``from repro import`` becomes ``from repro_torch import``. It holds for
+docstrings and comments too.
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_engine_copy.py
+
+The three names the port takes from elsewhere in the JAX package
+(``utils.stable_hash64``, ``data.generator.shufflebench_records`` and
+``LoadGenerator``) are held to the same rule through their source.
+"""
+
+import difflib
+import inspect
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX_PKG = ROOT / "src" / "repro"
+PORT = ROOT / "src" / "repro_torch"
+ENGINE = ("core", "obs", "cluster")
+NOT_COPIED = {"core/store.py"}
+
+
+def rewrite(text: str) -> str:
+    text = re.sub(r"(?<![\w.])repro\.", "repro_torch.", text)
+    return text.replace("from repro import", "from repro_torch import")
+
+
+def _py_files(root: Path) -> set:
+    return {p.relative_to(root).as_posix() for pkg in ENGINE
+            for p in (root / pkg).rglob("*.py")}
+
+
+ORIGINALS = sorted(_py_files(JAX_PKG) - NOT_COPIED)
+
+
+def _same(want: str, got: str, name: str) -> None:
+    if got != want:
+        diff = "".join(difflib.unified_diff(
+            want.splitlines(True), got.splitlines(True),
+            f"rewrite(repro/{name})", f"repro_torch/{name}"))
+        pytest.fail(f"repro_torch/{name} differs from its original:\n{diff}")
+
+
+def test_the_rewrite_rule():
+    assert rewrite("from repro.core.blob import X  # see ``repro.obs``") == \
+        "from repro_torch.core.blob import X  # see ``repro_torch.obs``"
+    assert rewrite("from repro import utils") == "from repro_torch import utils"
+    # a word character or a dot before it: another name, left alone
+    assert rewrite("my_repro.x a.repro.y repro_torch.z") == "my_repro.x a.repro.y repro_torch.z"
+
+
+def test_the_copied_files_are_the_engine_layer():
+    """The port holds exactly the engine's files but the shim: a file the
+    JAX package gains later fails here until it is copied."""
+    assert len(ORIGINALS) == 39
+    assert _py_files(PORT) == set(ORIGINALS)
+    assert not (PORT / "core" / "store.py").exists()
+
+
+@pytest.mark.parametrize("name", ORIGINALS)
+def test_copy_equals_its_original_after_the_rewrite(name):
+    want = rewrite((JAX_PKG / name).read_text())
+    _same(want, (PORT / name).read_text(), name)
+
+
+def test_the_names_taken_from_outside_the_engine_are_the_originals():
+    from repro import utils as jutils
+    from repro.data import generator as jgen
+    from repro_torch import utils
+    from repro_torch.data import generator
+    for jfn, fn in ((jutils.stable_hash64, utils.stable_hash64),
+                    (jgen.shufflebench_records, generator.shufflebench_records),
+                    (jgen.LoadGenerator, generator.LoadGenerator)):
+        _same(rewrite(inspect.getsource(jfn)), inspect.getsource(fn), fn.__qualname__)
+    from repro_torch.data import LoadGenerator, shufflebench_records
+    assert (LoadGenerator, shufflebench_records) == (generator.LoadGenerator,
+                                                     generator.shufflebench_records)
+    from repro_torch.core import cache
+    assert cache.stable_hash64 is utils.stable_hash64

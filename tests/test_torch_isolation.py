@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of ``repro``, and ``chip_smoke.py`` refuses
-to run without a CUDA device or outside a checkout."""
+neither ``jax`` nor anything of ``repro``, the port's engine layer runs
+where ``jax`` cannot be imported (as on the card's machine), and
+``chip_smoke.py`` refuses to run without a CUDA device or outside a
+checkout."""
 
 import ast
 import os
@@ -38,6 +40,21 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
     assert int(n_modules) >= 20 and bad.strip() == "[]", out.stdout
+
+
+def test_the_engine_runs_where_jax_cannot_be_imported():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['jaxlib'] = None\n"
+        "import repro_torch.core, repro_torch.obs, repro_torch.cluster\n"
+        "from repro_torch.core.simulator import SimConfig, simulate_async\n"
+        "eng, s = simulate_async(SimConfig(), scale=0.001, exactly_once=True)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] == 'repro'\n"
+        "             or sys.modules[n] is not None and n.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "print(int(s['records']), eng.metrics.duplicates_delivered, bad)\n")
+    out = _run(["-c", code], ROOT, PYTHONPATH=str(ROOT / "src"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["33135", "0", "[]"], out.stdout
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
