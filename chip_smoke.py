@@ -174,7 +174,25 @@
    those at the timed shape (``launches_at_timed_shape``: the forward's
    and the recompute's, 8; unpack's 12 also count pack's backward, an
    unpack of the same shape; unpack's backward is a pack at another).
-11. Prints one ``kernels`` line: per kernel its launches on its main path
+11. ``deepseek_v2_lite_shuffle_fed``: BlobShuffle as the training input.
+   The same 3 layers trained for 12 steps by ``repro_torch.train_input``'s
+   ``train_shuffle_fed``: each step's 4 x 4,096 tokens (4 records of
+   16,388 bytes) go through the training benchmark's faulty elastic
+   engine (``launch.engine.faulty_elastic_engine``: AZ 1 out at 0.30 s
+   of the virtual clock, a step every 0.05 s) and ``ShuffleFedInput``
+   onto the card; the test mesh (pod 2, data 2, model 2), the ``blob``
+   shuffle at capacity factor 2.0 and the ``blob_int8`` sync as in the
+   benchmark, (c)'s microbatches, remat and bf16, (a)'s optimizer.
+   Steps 0-11 served once each, each batch ``reference_batch``'s bit
+   for bit; a fresh pipeline's first batch valid against the input
+   specs (``validate_device_batch`` equal to ``input_spec_report``) and
+   ``lower_train_step`` run at its shape; overlap >= 0.5; finite losses,
+   the last 3 below the first 3 on average; (c)'s launches a step and no
+   other kernel; no module of JAX loaded. Prints the step seconds and
+   tokens/s, the input's host wait, prefetch and overlap, the records
+   delivered and replayed, the rows filtered, the rebalances, the losses
+   and the peak memory.
+12. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
@@ -206,7 +224,7 @@
    pack and unpack at one microbatch's shapes, with their launches a
    step and, for pack and unpack, those at the timed shape) and the SSD
    chunk's (``path`` ``kernel_grads``) follow.
-12. Ends with ``{"ok": true, "device": {...}}``.
+13. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -317,6 +335,14 @@ TRAIN_MICROBATCHES = 2
 # backward
 TRAIN_FLASH_LAUNCHES = TRAIN_LAYERS * TRAIN_MICROBATCHES * 2
 TRAIN_PACK_LAUNCHES = (TRAIN_LAYERS - 1) * TRAIN_MICROBATCHES * 3
+# deepseek-v2-lite fed by BlobShuffle (phase deepseek_v2_lite_shuffle_fed):
+# the training benchmark's --quick step count, engine, mesh, shuffle and
+# sync (benchmarks/train_input.py); (c)'s microbatches, remat and bf16;
+# (a)'s optimizer; its CI gate on the double buffer's overlap
+SHUFFLE_FED_STEPS = 12
+SHUFFLE_FED_CAPACITY = 2.0
+SHUFFLE_FED_PIPELINE = {"step_interval_s": 0.05, "prefetch_steps": 2}
+SHUFFLE_FED_OVERLAP = 0.5
 # the gradient sync against the plain mean of two pods' gradients: exact
 # by the largest difference over the largest entry, int8 by the bound of
 # the JAX package's test_grad_sync_exact_and_compressed
@@ -2356,6 +2382,159 @@ def deepseek_v2_lite_train(seed: int) -> list:
     del x, buf, y, params, batch, rows
     return train_rows
 
+
+def deepseek_v2_lite_shuffle_fed(seed: int, smi: str) -> None:
+    """Phase ``deepseek_v2_lite_shuffle_fed``: deepseek-v2-lite at published
+    widths with ``TRAIN_LAYERS`` of its layers, trained on the card for
+    ``SHUFFLE_FED_STEPS`` steps by ``repro_torch.train_input``'s
+    ``train_shuffle_fed``, each step's 4 x 4,096 tokens shuffled through
+    the training benchmark's faulty elastic engine (AZ 1 out at 0.30 s of
+    the virtual clock, a step every 0.05 s) and put on the card by
+    ``ShuffleFedInput`` over the test mesh (pod 2, data 2, model 2); the
+    ``blob_int8`` step of (c). Checks: the trainer served steps 0..11
+    once each, every batch ``reference_batch``'s bit for bit (on the
+    host); the first batch of a fresh pipeline validates against the
+    input specs and its report is ``input_spec_report``'s;
+    ``lower_train_step`` runs at that shape; the double buffer's overlap
+    at least ``SHUFFLE_FED_OVERLAP``; finite losses, the mean of the last
+    3 below that of the first 3; (c)'s flash, pack and unpack launches a
+    step and no other kernel; no module of ``jax`` or of the JAX package
+    loaded."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.blob_codec import kernel as codec_kernel
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.engine import faulty_elastic_engine
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.shuffle.api import ShuffleConfig
+    from repro_torch.train_input import (ShuffleFedInput, TokenStreamConfig,
+                                         input_spec_report, lower_train_step,
+                                         reference_batch, train_shuffle_fed,
+                                         validate_device_batch)
+    from repro_torch.training import OptConfig, TrainConfig, make_train_step
+
+    before = set(_foreign_modules())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before the shuffle-fed run: {held_gb} GB held")
+    arch = "deepseek-v2-lite-16b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
+    B, S, steps = DECODER_PREFILL_BATCH, PREFILL_LEN, SHUFFLE_FED_STEPS
+    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, batch=B, seq_len=S, seed=seed)
+    mesh = make_test_mesh(devices=8)
+    pods = mesh.shape["pod"]
+    opt_cfg = OptConfig(learning_rate=1e-3, warmup_steps=2, total_steps=steps)
+    tcfg = TrainConfig(opt=opt_cfg, microbatches=TRAIN_MICROBATCHES, remat="full",
+                       shuffle=ShuffleConfig(mode="blob", capacity_factor=SHUFFLE_FED_CAPACITY),
+                       grad_sync="blob_int8")
+    clusters = []
+
+    def engine_factory():
+        eng, cluster, _ = faulty_elastic_engine()
+        clusters.append(cluster)
+        return eng
+
+    # the dryrun gate: a fresh pipeline's first batch, and the step at its shape
+    probe = ShuffleFedInput(engine_factory(), stream, steps=1, mesh=mesh, model_cfg=cfg,
+                            **SHUFFLE_FED_PIPELINE)
+    probe.submit()
+    _, first, _ = probe.next_batch()
+    report = validate_device_batch(first, cfg, probe.shape, mesh)
+    check(report == input_spec_report(cfg, probe.shape, mesh),
+          f"the device batch's report is input_spec_report's: {report}")
+    t0 = time.perf_counter()
+    head = lower_train_step(cfg, tcfg, mesh, probe.shape)
+    torch.cuda.synchronize()
+    lower_s = time.perf_counter() - t0
+    del first, probe
+    clusters.clear()
+    torch.cuda.empty_cache()
+
+    kernels = {kn.symbol: kn for kn in (pack_kernel.PACK, unpack_kernel.UNPACK,
+                                        codec_kernel.COMPRESS_PACK,
+                                        codec_kernel.UNPACK_DECOMPRESS,
+                                        *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
+    per_step = {flash_kernel.FLASH_WGMMA.symbol: pods * TRAIN_FLASH_LAUNCHES,
+                pack_kernel.PACK.symbol: pods * TRAIN_PACK_LAUNCHES,
+                unpack_kernel.UNPACK.symbol: pods * TRAIN_PACK_LAUNCHES}
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    served, secs = [], []
+
+    def recording_step(params, opt, batch):
+        # the batch as the trainer got it, and the step's device time
+        served.append(batch)
+        t1 = time.perf_counter()
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        return out
+
+    for kn in kernels.values():
+        kn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_shuffle_fed(cfg, tcfg, mesh, stream, steps=steps, engine_factory=engine_factory,
+                            step_fn=recording_step, init_seed=seed,
+                            pipeline_kwargs=SHUFFLE_FED_PIPELINE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {s_: kn.launches for s_, kn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = res.input_stats
+    check(not res.crashed and res.steps == list(range(steps)) and len(served) == steps
+          and st["requests"] == steps,
+          f"steps 0..{steps - 1} served once each: {res.steps}, {st['requests']} requests")
+    for s_, batch in enumerate(served):
+        want = reference_batch(stream, s_)
+        check(sorted(batch) == sorted(want) and all(
+            batch[k].dtype == torch.int32 and batch[k].is_cuda
+            and np.array_equal(batch[k].cpu().numpy(), want[k]) for k in want),
+            f"step {s_}'s batch on the card is reference_batch's bit for bit")
+    check(launches == {s_: steps * per_step.get(s_, 0) for s_ in kernels},
+          f"{steps} steps: {per_step} launches a step and no other kernel: {launches}")
+    losses = res.losses
+    check(all(np.isfinite(losses)), f"finite losses {losses}")
+    check(float(np.mean(losses[-3:])) < float(np.mean(losses[:3])),
+          f"the mean loss of the last 3 steps below the first 3's: {losses}")
+    check(st["overlap_fraction"] >= SHUFFLE_FED_OVERLAP,
+          f"overlap {st['overlap_fraction']} >= {SHUFFLE_FED_OVERLAP}")
+    (cluster,) = clusters
+    rebalances = len([e for e in cluster.rebalancer.events if not e.superseded])
+    check(rebalances >= 1, "the AZ outage rebalances the cluster")
+    foreign = sorted(set(_foreign_modules()) - before)
+    check(not foreign, f"the phase loads no module of jax or the JAX package: {foreign[:5]}")
+    median_s = statistics.median(secs[1:])
+    emit({"phase": "deepseek_v2_lite_shuffle_fed", "nvidia_smi": smi, "arch": arch,
+          "layers": cfg.num_layers, "published_layers": get_config(arch).num_layers,
+          "batch": B, "seq": S, "steps": steps, "record_bytes": stream.record_value_bytes,
+          "mesh": mesh.shape, "microbatches": TRAIN_MICROBATCHES, "remat": "full",
+          "compute_dtype": "bfloat16", "shuffle": "blob", "grad_sync": "blob_int8",
+          "capacity_factor": SHUFFLE_FED_CAPACITY, "opt": dataclasses.asdict(opt_cfg),
+          "engine": "faulty_elastic_engine (FaultyStore 2% over ExpressOneZoneStore, "
+                    "9 partitions, 3 instances, AZ 1 out at 0.30 s)",
+          "pipeline": SHUFFLE_FED_PIPELINE,
+          "clocks": "step_s, step_time_s, host_*_s, wall_s: the host's clock, each step "
+                    "synchronised; the engine runs on a virtual clock",
+          "losses": losses, "step_s": secs, "median_step_s": median_s,
+          "tokens_per_s": B * S / median_s, "step_time_s": st["step_time_s"],
+          "mean_step_s": st["step_time_s"] / steps,
+          "host_wait_s": st["host_wait_s"], "host_prefetch_s": st["host_prefetch_s"],
+          "overlap_fraction": st["overlap_fraction"],
+          "records_delivered": st["records_delivered"],
+          "bytes_delivered": st["bytes_delivered"],
+          "records_replayed": st["records_replayed"],
+          "duplicate_rows_filtered": st["duplicate_rows_filtered"],
+          "rebalances": rebalances, "peak_memory_gb": peak, "wall_s": wall,
+          "launches_per_step": {s_: c // steps for s_, c in launches.items() if c},
+          "input_specs": report, "lower_train_step": head, "lower_train_step_s": lower_s,
+          "ok": True})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2397,6 +2576,7 @@ def main(argv=None) -> int:
         rows += decoder_serve(args.seed, arch, phase, row, layers)
     rows += kernel_grads(args.seed)
     rows += deepseek_v2_lite_train(args.seed)
+    deepseek_v2_lite_shuffle_fed(args.seed, smi)
     emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

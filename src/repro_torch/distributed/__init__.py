@@ -1,0 +1,6 @@
+from repro_torch.distributed.sharding import (DEFAULT_RULES, NamedSharding,
+                                              PartitionSpec, ShardingRules,
+                                              batch_specs, partition_spec)
+
+__all__ = ["DEFAULT_RULES", "NamedSharding", "PartitionSpec", "ShardingRules",
+           "batch_specs", "partition_spec"]

@@ -15,9 +15,13 @@ docstrings and comments too.
 
 The three names the port takes from elsewhere in the JAX package
 (``utils.stable_hash64``, ``data.generator.shufflebench_records`` and
-``LoadGenerator``) are held to the same rule through their source.
+``LoadGenerator``) are held to the same rule through their source. So
+are the training input's ``train_input/tokens.py`` and ``__init__.py``,
+and ``train_input/pipeline.py`` but for ``_make_device_put`` and the
+two lines that carry its ``device`` keyword.
 """
 
+import ast
 import difflib
 import inspect
 import re
@@ -89,3 +93,64 @@ def test_the_names_taken_from_outside_the_engine_are_the_originals():
                                                      generator.shufflebench_records)
     from repro_torch.core import cache
     assert cache.stable_hash64 is utils.stable_hash64
+
+
+# ---------------------------------------------------------------------------
+# the training input: ``train_input/tokens.py`` and ``__init__.py`` are
+# copies under the rule; so is ``pipeline.py`` but for ``_make_device_put``
+# (JAX's ``device_put`` to a ``NamedSharding`` becomes a put on the
+# pipeline's device) and the ``device`` keyword that reaches it
+# ---------------------------------------------------------------------------
+
+TRAIN_INPUT_COPIES = ["train_input/tokens.py", "train_input/__init__.py"]
+PIPELINE = "train_input/pipeline.py"
+# the two lines of ``pipeline.py`` outside ``_make_device_put`` that carry
+# the port's ``device`` keyword
+DEVICE_EDITS = (
+    ("                 mesh=None, model_cfg=None, rules=None):\n",
+     "                 mesh=None, model_cfg=None, rules=None, device=\"cuda\"):\n"),
+    ("        self._put = (self._make_device_put(mesh, model_cfg, rules)\n",
+     "        self._put = (self._make_device_put(mesh, model_cfg, rules, device)\n"),
+)
+
+
+def _method_lines(text: str, name: str) -> tuple:
+    """The first and one past the last line index of the method ``name``."""
+    (node,) = [n for n in ast.walk(ast.parse(text))
+               if isinstance(n, ast.FunctionDef) and n.name == name]
+    return node.lineno - 1, node.end_lineno
+
+
+def _without_method(text: str, name: str) -> str:
+    """``text`` with the method ``name`` (its ``def`` to its last line) cut."""
+    lines = text.splitlines(True)
+    a, b = _method_lines(text, name)
+    return "".join(lines[:a] + lines[b:])
+
+
+@pytest.mark.parametrize("name", TRAIN_INPUT_COPIES)
+def test_train_input_copy_equals_its_original_after_the_rewrite(name):
+    _same(rewrite((JAX_PKG / name).read_text()), (PORT / name).read_text(), name)
+
+
+def test_the_pipeline_is_a_copy_but_for_its_device_put():
+    want = rewrite((JAX_PKG / PIPELINE).read_text())
+    for old, new in DEVICE_EDITS:
+        assert want.count(old) == 1, old
+        want = want.replace(old, new)
+    got = (PORT / PIPELINE).read_text()
+    _same(_without_method(want, "_make_device_put"),
+          _without_method(got, "_make_device_put"), PIPELINE)
+    # the port's put is its own, and names no jax
+    a, b = _method_lines(got, "_make_device_put")
+    assert "jax" not in "".join(got.splitlines(True)[a:b])
+
+
+def test_the_train_input_package_holds_the_copies_and_its_own_modules():
+    """The JAX package's ``train_input`` files all have a twin; ``loop.py``
+    and ``specs_check.py`` are the port's own (no checkpoints; no
+    lowering), held against JAX's by ``tests/test_torch_shuffle_fed_loop.py``
+    and ``tests/test_torch_input_specs.py``."""
+    names = {p.name for p in (JAX_PKG / "train_input").glob("*.py")}
+    assert names == {p.name for p in (PORT / "train_input").glob("*.py")}
+    assert names == {"__init__.py", "tokens.py", "pipeline.py", "loop.py", "specs_check.py"}
