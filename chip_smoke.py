@@ -192,7 +192,28 @@
    tokens/s, the input's host wait, prefetch and overlap, the records
    delivered and replayed, the rows filtered, the rebalances, the losses
    and the peak memory.
-12. Prints one ``kernels`` line: per kernel its launches on its main path
+12. ``deepseek_v2_lite_restart``: blob checkpoints and restart. The same
+   3 layers, seed, batch and plain step as (a) of 10, 4 steps twice: once
+   uninterrupted, and once driven by ``repro_torch.runtime``'s
+   ``FaultTolerantTrainer`` (``ckpt_every`` 2, async uploads, one
+   injected failure at step 3) over a ``TieredCheckpointStore`` on a
+   ``FaultyStore(SimulatedS3)`` in host memory, as the JAX package's
+   training benchmark checkpoints: manifests 0, 2 and 4 of the JAX
+   package's layout (88 leaves, 20.04 GB each) and one restore, of step
+   2, into the model's tensors in place. The host's available memory is
+   read first; the phase fails unless three manifests fit with
+   ``RESTART_HOST_SPARE_GB`` to spare, and that spare must hold before
+   and after every save. The restarted run's losses and final parameters
+   must equal the uninterrupted run's bit for bit, every step run (5 with
+   the replayed one) must launch (a)'s kernels and no other, and the
+   card's peak stay within ``RESTART_PEAK_MARGIN_GB`` of (a)'s. Prints
+   the manifest's bytes, each save's seconds (its host copy and its
+   commit), the restore's, the host headroom around each save, the
+   store's retries and the peak; then deletes the store. Last, ``python
+   -m repro_torch.launch.train --arch deepseek-v2-lite-16b --steps 4
+   --ckpt-every 2 --ckpt-dir <tmp>`` (SMOKE, on the card) must commit
+   manifests 0, 2 and 4.
+13. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
@@ -224,7 +245,7 @@
    pack and unpack at one microbatch's shapes, with their launches a
    step and, for pack and unpack, those at the timed shape) and the SSD
    chunk's (``path`` ``kernel_grads``) follow.
-13. Ends with ``{"ok": true, "device": {...}}``.
+14. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -233,7 +254,10 @@ the script exits non-zero before it prints any result.
 from __future__ import annotations
 
 import argparse
+import gc
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -343,6 +367,18 @@ SHUFFLE_FED_STEPS = 12
 SHUFFLE_FED_CAPACITY = 2.0
 SHUFFLE_FED_PIPELINE = {"step_interval_s": 0.05, "prefetch_steps": 2}
 SHUFFLE_FED_OVERLAP = 0.5
+# deepseek-v2-lite restarted from blob checkpoints (phase
+# deepseek_v2_lite_restart): (a)'s step, 4 steps with a manifest every 2
+# and one failure at step 3, so manifests 0, 2 and 4 and a restore of 2
+RESTART_STEPS = 4
+RESTART_CKPT_EVERY = 2
+RESTART_FAIL_AT = {3: 1}
+RESTART_HOST_SPARE_GB = 16.0    # host memory left free with every manifest held
+RESTART_PEAK_MARGIN_GB = 1.0    # over (a)'s plain peak
+RESTART_RELEASE_GB = 2.0        # host memory the deleted store may leave taken
+RESTART_RELEASE_S = 60.0        # for at most this long
+# what an earlier phase hands a later one
+RESULTS = {}
 # the gradient sync against the plain mean of two pods' gradients: exact
 # by the largest difference over the largest entry, int8 by the bound of
 # the JAX package's test_grad_sync_exact_and_compressed
@@ -2205,6 +2241,7 @@ def deepseek_v2_lite_train(seed: int) -> list:
     profile = profile_call(lambda: step(params, opt, batch), "deepseek_v2_lite_train_profile",
                            25)
     result["plain"] = plain
+    RESULTS["deepseek_v2_lite_train"] = plain
     del opt
 
     # (b) the gradient sync at full width: each pod's gradients for its
@@ -2535,6 +2572,257 @@ def deepseek_v2_lite_shuffle_fed(seed: int, smi: str) -> None:
           "ok": True})
 
 
+def host_available_gb() -> float:
+    """The host's available memory (``MemAvailable``), in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def params_digest(model) -> dict:
+    """sha256 of each parameter's bytes, a parameter at a time on the host."""
+    return {name: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+            for name, p in model.named_parameters()}
+
+
+def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
+    """Phase ``deepseek_v2_lite_restart`` (step 12 above): (a)'s plain
+    step restarted from blob checkpoints by ``FaultTolerantTrainer``,
+    bit for bit against the uninterrupted run; then the train launcher's
+    ``--ckpt-dir`` on the card."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import TieredCheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.core.stores import FaultyStore, SimulatedS3
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params
+    from repro_torch.runtime import FaultTolerantTrainer
+    from repro_torch.shuffle import api
+    from repro_torch.training import OptConfig, TrainConfig, adamw_init, make_train_step
+
+    before_modules = set(_foreign_modules())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before the restart phase: {held_gb} GB held")
+    arch = "deepseek-v2-lite-16b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
+    n_params = cfg.param_count()
+    # params, m and v in f32 and the int32 count: the manifest's bytes
+    manifest_bytes = 3 * 4 * n_params + 4
+    need_gb = 3 * manifest_bytes / 1e9 + RESTART_HOST_SPARE_GB
+    start_gb = host_available_gb()
+    check(start_gb >= need_gb,
+          f"the host has {start_gb:.1f} GB available; 3 manifests of "
+          f"{manifest_bytes / 1e9:.2f} GB with {RESTART_HOST_SPARE_GB} GB to spare need "
+          f"{need_gb:.1f} GB")
+    B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
+    opt_cfg = OptConfig(learning_rate=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, TrainConfig(
+        opt=opt_cfg, microbatches=TRAIN_MICROBATCHES, remat="full",
+        shuffle=api.ShuffleConfig(mode="dense", capacity_factor=cfg.moe.capacity_factor)))
+    kernels = {kn.symbol: kn for kn in (pack_kernel.PACK, unpack_kernel.UNPACK,
+                                        *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
+    per_step = {flash_kernel.FLASH_WGMMA.symbol: TRAIN_FLASH_LAUNCHES,
+                pack_kernel.PACK.symbol: TRAIN_PACK_LAUNCHES,
+                unpack_kernel.UNPACK.symbol: TRAIN_PACK_LAUNCHES}
+
+    def fresh():
+        """(a)'s parameters and batch: the same seed, the same draws."""
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(lm.LM(cfg, device="cuda"), gen)
+        rows = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        return params, {"tokens": rows[:, :-1].contiguous(),
+                        "labels": rows[:, 1:].contiguous()}
+
+    runs = []
+
+    def counting_step(params, opt, batch):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t1)
+        return out
+
+    def launches():
+        return {s_: kn.launches for s_, kn in kernels.items()}
+
+    # the uninterrupted run
+    params, batch = fresh()
+    opt = adamw_init(params)
+    for kn in kernels.values():
+        kn.launches = 0
+    t0 = time.perf_counter()
+    plain_losses = []
+    for _ in range(RESTART_STEPS):
+        params, opt, metrics = counting_step(params, opt, batch)
+        plain_losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_step_s = list(runs)
+    got = launches()
+    check(got == {s_: len(runs) * per_step.get(s_, 0) for s_ in kernels},
+          f"{len(runs)} uninterrupted steps: {per_step} a step and no other kernel: {got}")
+    plain_digest = params_digest(params)
+    del params, opt, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps through FaultTolerantTrainer, failing at step 3
+    store = TieredCheckpointStore(FaultyStore(SimulatedS3(seed=31), seed=33,
+                                              transient_p=0.05))
+    params, batch = fresh()
+    trainer = FaultTolerantTrainer(store, counting_step, lambda i: batch,
+                                   ckpt_every=RESTART_CKPT_EVERY)
+    ckpt = trainer.ckpt
+    saves, restores = [], []
+    real = {"save": ckpt.save, "restore": ckpt.restore, "wait": ckpt.wait}
+
+    def timed_save(step_, tree, **kw):
+        timed_wait()      # the last upload commits before the host is read
+        avail = host_available_gb()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        real["save"](step_, tree, **kw)
+        saves.append({"step": step_, "host_copy_s": time.perf_counter() - t1,
+                      "host_available_gb_before": avail,
+                      "host_available_gb_after": host_available_gb()})
+
+    def timed_wait():
+        # only a wait with an upload in flight: the save it commits
+        in_flight = ckpt._thread is not None
+        t1 = time.perf_counter()
+        real["wait"]()
+        if in_flight:
+            saves[-1].update(commit_wait_s=time.perf_counter() - t1,
+                             host_available_gb_committed=host_available_gb())
+
+    def timed_restore(step_, like, **kw):
+        avail = host_available_gb()
+        t1 = time.perf_counter()
+        out = real["restore"](step_, like, **kw)
+        torch.cuda.synchronize()
+        restores.append({"step": step_, "s": time.perf_counter() - t1,
+                         "host_available_gb_before": avail,
+                         "host_available_gb_after": host_available_gb()})
+        return out
+
+    ckpt.save, ckpt.restore, ckpt.wait = timed_save, timed_restore, timed_wait
+    runs.clear()
+    for kn in kernels.values():
+        kn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, losses = trainer.run(params, adamw_init(params), steps=RESTART_STEPS,
+                                      fail_at=RESTART_FAIL_AT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = launches()
+    n_runs = len(runs)
+    check(n_runs == RESTART_STEPS + 1,
+          f"{RESTART_STEPS} steps and the replayed step 2: {n_runs} step calls")
+    check(got == {s_: n_runs * per_step.get(s_, 0) for s_ in kernels},
+          f"{n_runs} steps through the trainer: {per_step} a step and no other kernel: {got}")
+    names = store.manifests()
+    check(names == [f"step{s_:08d}.json" for s_ in (0, 2, 4)],
+          f"manifests 0, 2 and 4 committed: {names}")
+    sizes = []
+    for name in names:
+        m = store.get_manifest(name)
+        sizes.append(sum(int(np.prod(e["shape"], dtype=np.int64))
+                         * np.dtype(e["dtype"]).itemsize for e in m["leaves"]))
+    check(sizes == [manifest_bytes] * 3, f"each manifest {manifest_bytes} bytes: {sizes}")
+    check([r["step"] for r in restores] == [2], f"one restore, of step 2: {restores}")
+    check(losses == plain_losses,
+          f"the restarted run's losses {losses} are the uninterrupted run's "
+          f"{plain_losses} bit for bit")
+    final_digest = params_digest(params)
+    differ = sorted(n for n in plain_digest if final_digest[n] != plain_digest[n])
+    check(not differ, f"the final parameters are the uninterrupted run's bit for bit: "
+                      f"{len(differ)} differ, {differ[:5]}")
+    train_peak = RESULTS["deepseek_v2_lite_train"]["peak_memory_gb"]
+    check(peak <= train_peak + RESTART_PEAK_MARGIN_GB,
+          f"peak {peak} GB within {RESTART_PEAK_MARGIN_GB} GB of (a)'s {train_peak}")
+    lows = [v for r in saves + restores for k, v in r.items() if k.startswith("host_avail")]
+    check(min(lows) >= RESTART_HOST_SPARE_GB,
+          f"{RESTART_HOST_SPARE_GB} GB of host memory free around every save and the "
+          f"restore: {min(lows)}")
+    retries = store.retries
+    store_gb = sum(len(o.data) for o in store.store.inner.objects.values()) / 1e9
+    del trainer, ckpt, real, store, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the host's allocator may hand freed memory back to the system late:
+    # wait for it, up to RESTART_RELEASE_S
+    t1 = time.perf_counter()
+    while True:
+        end_gb = host_available_gb()
+        release_s = time.perf_counter() - t1
+        if end_gb >= start_gb - RESTART_RELEASE_GB or release_s > RESTART_RELEASE_S:
+            break
+        time.sleep(0.5)
+    check(end_gb >= start_gb - RESTART_RELEASE_GB,
+          f"the store deleted: {end_gb} GB available against {start_gb} at the start, "
+          f"{release_s:.1f} s after")
+
+    # the launcher on the card: SMOKE, its checkpoints into a temporary directory
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+             "--steps", str(RESTART_STEPS), "--ckpt-every", str(RESTART_CKPT_EVERY),
+             "--ckpt-dir", tmp], cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        launcher_s = time.perf_counter() - t0
+        check(out.returncode == 0, f"the train launcher: rc {out.returncode}: "
+                                   f"{out.stderr[-2000:]}")
+        committed = sorted(os.listdir(os.path.join(tmp, "manifests")))
+    check(committed == [f"step{s_:08d}.json" for s_ in (0, 2, 4)],
+          f"the launcher commits manifests 0, 2 and 4: {committed}")
+    foreign = sorted(set(_foreign_modules()) - before_modules)
+    check(not foreign, f"the phase loads no module of jax or the JAX package: {foreign[:5]}")
+    emit({"phase": "deepseek_v2_lite_restart", "nvidia_smi": smi, "arch": arch,
+          "layers": cfg.num_layers, "published_layers": get_config(arch).num_layers,
+          "params": n_params, "batch": B, "seq": S, "microbatches": TRAIN_MICROBATCHES,
+          "remat": "full", "compute_dtype": "bfloat16", "opt": dataclasses.asdict(opt_cfg),
+          "steps": RESTART_STEPS, "ckpt_every": RESTART_CKPT_EVERY,
+          "fail_at": {str(k): v for k, v in RESTART_FAIL_AT.items()},
+          "store": "TieredCheckpointStore(FaultyStore(SimulatedS3(seed=31), seed=33, "
+                   "transient_p=0.05)) in host memory, async uploads",
+          "clocks": "every *_s: the host's clock, synchronised; host_copy_s is save's "
+                    "blocking part (the device-to-host copy), commit_wait_s the wait for "
+                    "its upload to commit (step 2's upload runs during step 2: "
+                    "trainer_step_s), store_release_s the wait for the deleted store's "
+                    "memory to come back",
+          "manifests": names, "manifest_bytes": manifest_bytes, "store_gb": store_gb,
+          "saves": saves, "restores": restores, "retries": retries,
+          "host_available_gb": {"start": start_gb, "min": min(lows), "end": end_gb},
+          "store_release_s": release_s,
+          "host_spare_gb": RESTART_HOST_SPARE_GB,
+          "losses": losses, "uninterrupted_losses": plain_losses,
+          "losses_equal_train_phase": plain_losses
+          == RESULTS["deepseek_v2_lite_train"]["losses"][:RESTART_STEPS],
+          "uninterrupted_s": plain_s, "uninterrupted_step_s": plain_step_s,
+          "trainer_wall_s": wall, "trainer_step_s": list(runs), "step_calls": n_runs,
+          "launches_per_step": {s_: c // n_runs for s_, c in got.items() if c},
+          "peak_memory_gb": peak, "train_plain_peak_gb": train_peak,
+          "launcher": {"manifests": committed, "seconds": launcher_s,
+                       "last_line": out.stdout.strip().splitlines()[-1]},
+          "ok": True})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2577,6 +2865,7 @@ def main(argv=None) -> int:
     rows += kernel_grads(args.seed)
     rows += deepseek_v2_lite_train(args.seed)
     deepseek_v2_lite_shuffle_fed(args.seed, smi)
+    deepseek_v2_lite_restart(args.seed, smi)
     emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -6,7 +6,10 @@ caches), given as numpy or as anything ``np.asarray`` accepts, into
 tensors, keeping dicts, tuples and named tuples as they are.
 ``to_numpy`` turns tensors back. ``params_from_jax`` loads the JAX
 package's parameter tree into the port's model modules, and
-``cache_from_jax`` its decode cache.
+``cache_from_jax`` its decode cache. ``train_state_tree`` lays the port's
+train state (the model and its AdamW state) out as the JAX package's
+tree, which ``train_state_to_jax`` copies to numpy and
+``train_state_from_jax`` loads back onto a device.
 Both keep every bit: a JAX bf16 array converts to numpy with the
 ``ml_dtypes`` bfloat16 dtype, which ``torch.from_numpy`` refuses, so bf16
 crosses as its uint16 bit pattern.
@@ -115,3 +118,114 @@ def cache_from_jax(cache, device="cuda") -> dict:
     """The JAX package's decode cache (nested dicts of stacked arrays) ->
     the port's cache of the same layout, bit for bit."""
     return to_torch(cache, device)
+
+
+class StackedRows:
+    """The JAX package's stacked leaf of one per-layer tensor of the port:
+    row ``i`` of the leaf is layer ``i``'s tensor. It has the leaf's
+    ``shape``; ``np.asarray`` copies the rows off their device into one
+    array, and ``copy_`` writes a stacked source into the rows in place."""
+
+    def __init__(self, rows):
+        self.rows = list(rows)
+        self.shape = (len(self.rows), *self.rows[0].shape)
+        self.dtype = self.rows[0].dtype
+
+    def __array__(self, dtype=None, copy=None):
+        kind = to_numpy(self.rows[0].reshape(-1)[:0]).dtype
+        out = np.empty(self.shape, kind)
+        bf16 = kind.name == "bfloat16"
+        for i, row in enumerate(self.rows):   # each row straight into its place
+            dst = torch.from_numpy(out[i].view(np.uint16) if bf16 else out[i])
+            (dst.view(torch.bfloat16) if bf16 else dst).copy_(row.detach())
+        return out if dtype is None else out.astype(dtype)
+
+    def copy_(self, src):
+        for i, row in enumerate(self.rows):
+            row.copy_(src[i])
+        return self
+
+
+def _insert(tree: dict, path, leaf) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = leaf
+
+
+def _jax_layout(tensors: dict) -> dict:
+    """Tensors keyed by the port's parameter names -> the JAX package's
+    nested tree of them, each ``blocks.<i>.<path>`` (``dense_blocks``)
+    a row of the ``StackedRows`` at ``blocks/<path>``; the inverse of
+    ``_jax_leaf``."""
+    groups: dict = {}
+    for name, t in tensors.items():
+        parts = name.split(".")
+        layer = None
+        if parts[0] in ("blocks", "dense_blocks"):
+            layer = int(parts.pop(1))
+        groups.setdefault(tuple(parts), []).append((layer, t))
+    tree: dict = {}
+    for path, rows in groups.items():
+        if rows[0][0] is None:
+            (_, leaf), = rows
+        else:
+            layers = [layer for layer, _ in rows]
+            if layers != list(range(len(rows))):
+                raise ValueError(f"{'.'.join(path)}: layers {layers} are not 0..{len(rows) - 1}")
+            leaf = StackedRows(t for _, t in rows)
+        _insert(tree, path, leaf)
+    return tree
+
+
+def train_state_tree(model, opt: dict) -> dict:
+    """The port's train state as the JAX package's train state tree,
+    ``{"opt": {"count", "m", "v"}, "params": ...}`` with every layer
+    stacked on a leading ``layers`` axis. The leaves are the state's own
+    tensors (a stacked leaf a ``StackedRows`` over the layers' tensors),
+    so ``np.asarray`` of a leaf copies it to the host and ``copy_`` into
+    it writes the state in place."""
+    return {"opt": {"count": opt["count"], "m": _jax_layout(opt["m"]),
+                    "v": _jax_layout(opt["v"])},
+            "params": _jax_layout(dict(model.named_parameters()))}
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def train_state_to_jax(model, opt: dict) -> dict:
+    """The port's ``(lm.LM, AdamW state)`` -> the JAX package's train state
+    tree of fresh numpy arrays (bf16 with the ``ml_dtypes`` dtype)."""
+    def host(leaf):
+        return np.asarray(leaf) if isinstance(leaf, StackedRows) else np.array(to_numpy(leaf))
+    return _map_leaves(host, train_state_tree(model, opt))
+
+
+def train_state_from_jax(cfg, state: dict, device="cuda"):
+    """The JAX package's train state tree for ``cfg`` (``{"opt": {"count",
+    "m", "v"}, "params": ...}``, leaves numpy or array-likes) -> the port's
+    ``(lm.LM, AdamW state)`` on ``device``, bit for bit."""
+    from repro_torch.models.lm import LM
+    from repro_torch.training.optimizer import adamw_init
+    model = LM(cfg, device=device)
+    opt = adamw_init(model)
+
+    def load(target, leaf, path):
+        if isinstance(target, dict):
+            if not isinstance(leaf, dict) or sorted(leaf) != sorted(target):
+                raise ValueError(f"the JAX train state at {path or '/'} has other "
+                                 f"keys than the port's")
+            for k in target:
+                load(target[k], leaf[k], f"{path}/{k}")
+            return
+        t = to_torch(leaf, "cpu")
+        if tuple(t.shape) != tuple(target.shape) or t.dtype != target.dtype:
+            raise ValueError(f"JAX leaf {path} is {tuple(t.shape)} {t.dtype}, the "
+                             f"port's {tuple(target.shape)} {target.dtype}")
+        target.copy_(t)
+
+    with torch.no_grad():
+        load(train_state_tree(model, opt), state, "")
+    return model, opt

@@ -10,10 +10,11 @@ package's through ``interop.params_from_jax``); a numpy batch (no mesh)
 goes to the parameters' device before the step.
 
 ``crash_at_step=s`` raises ``SimulatedCrash`` after step ``s``'s batch
-was fetched but before the step runs, as in the JAX package. Blob
-checkpoints are not ported yet (``ROADMAP.md`` queue 1 item 3): a
-``ckpt`` is refused, and so is ``resume=True``, which needs one. With
-them will come ``fast_forward``'s resume path and the step-0 manifest.
+was fetched but before the step runs, as in the JAX package. The blob
+checkpointer is ported (``repro_torch.checkpoint``), but this loop's
+resume path is not yet (``ROADMAP.md`` queue 1 item 3b): a ``ckpt`` is
+refused, and so is ``resume=True``, which needs one. With it will come
+``fast_forward``'s resume path and the step-0 manifest.
 """
 
 from __future__ import annotations
@@ -65,8 +66,8 @@ def train_shuffle_fed(model_cfg, tcfg, mesh, stream: TokenStreamConfig, *,
         raise ValueError("resume=True requires a checkpointer")
     if ckpt is not None:
         raise NotImplementedError(
-            "blob checkpoints are not ported yet (ROADMAP.md queue 1 item 3): "
-            "train_shuffle_fed runs with ckpt=None")
+            "the shuffle-fed loop's checkpoints and resume path are not ported "
+            "yet (ROADMAP.md queue 1 item 3b): train_shuffle_fed runs with ckpt=None")
     engine = engine_factory()
     pipeline = ShuffleFedInput(engine, stream, steps=steps, mesh=mesh,
                                model_cfg=model_cfg, device=device,

@@ -18,7 +18,9 @@ The three names the port takes from elsewhere in the JAX package
 ``LoadGenerator``) are held to the same rule through their source. So
 are the training input's ``train_input/tokens.py`` and ``__init__.py``,
 and ``train_input/pipeline.py`` but for ``_make_device_put`` and the
-two lines that carry its ``device`` keyword.
+two lines that carry its ``device`` keyword. And so are the checkpoint
+and runtime layers' store-level modules: ``checkpoint/tiered.py``,
+``checkpoint/__init__.py`` and ``runtime/stragglers.py``.
 """
 
 import ast
@@ -154,3 +156,31 @@ def test_the_train_input_package_holds_the_copies_and_its_own_modules():
     names = {p.name for p in (JAX_PKG / "train_input").glob("*.py")}
     assert names == {p.name for p in (PORT / "train_input").glob("*.py")}
     assert names == {"__init__.py", "tokens.py", "pipeline.py", "loop.py", "specs_check.py"}
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint and runtime layers: ``checkpoint/tiered.py`` and
+# ``__init__.py`` and ``runtime/stragglers.py`` are copies under the rule;
+# ``blobstore_ckpt.py`` (which imports jax and ml_dtypes) and
+# ``fault_tolerance.py`` are the port's own, held against JAX's by
+# ``tests/test_torch_checkpoint.py`` and ``tests/test_torch_fault_tolerance.py``
+# ---------------------------------------------------------------------------
+
+RUNTIME_COPIES = ["checkpoint/tiered.py", "checkpoint/__init__.py", "runtime/stragglers.py"]
+
+
+@pytest.mark.parametrize("name", RUNTIME_COPIES)
+def test_checkpoint_and_runtime_copy_equals_its_original_after_the_rewrite(name):
+    _same(rewrite((JAX_PKG / name).read_text()), (PORT / name).read_text(), name)
+
+
+def test_the_checkpoint_and_runtime_packages_hold_the_copies_and_their_own_modules():
+    """Every file of the JAX package's ``checkpoint`` has a twin; its
+    ``runtime`` has all but ``elastic.py``, which needs the parameter part
+    of ``distributed.sharding`` (``ROADMAP.md`` queue 1 item 4)."""
+    def names(root, pkg):
+        return {p.name for p in (root / pkg).glob("*.py")}
+    assert names(JAX_PKG, "checkpoint") == names(PORT, "checkpoint") == \
+        {"__init__.py", "blobstore_ckpt.py", "tiered.py"}
+    assert names(JAX_PKG, "runtime") - names(PORT, "runtime") == {"elastic.py"}
+    assert names(PORT, "runtime") == {"__init__.py", "fault_tolerance.py", "stragglers.py"}

@@ -271,7 +271,7 @@ def test_checkpoints_are_refused():
     _, cfg = _cfgs()
     stream = TokenStreamConfig(cfg.vocab_size, 4, 16, 0)
     kw = dict(steps=2, engine_factory=lambda: _outage_engine("repro_torch"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3b"):
         loop.train_shuffle_fed(cfg, TrainConfig(), None, stream, ckpt=object(), **kw)
     with pytest.raises(ValueError) as got:
         loop.train_shuffle_fed(cfg, TrainConfig(), None, stream, resume=True, **kw)
