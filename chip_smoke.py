@@ -191,8 +191,41 @@
    other kernel; no module of JAX loaded. Prints the step seconds and
    tokens/s, the input's host wait, prefetch and overlap, the records
    delivered and replayed, the rows filtered, the rebalances, the losses
-   and the peak memory.
-12. ``deepseek_v2_lite_restart``: blob checkpoints and restart. The same
+   and the peak memory; hands its losses, steps, peak and final
+   parameters' digest to 12 through ``RESULTS``.
+12. ``deepseek_v2_lite_shuffle_resume``: the training benchmark's crash
+   lane (``benchmarks/train_input.py``'s resume lane) at published
+   widths. 11's model, seed, stream, train config, engine and pipeline,
+   checkpointed by ``train_shuffle_fed`` into
+   ``BlobCheckpointer(TieredCheckpointStore(FaultyStore(SimulatedS3)))``
+   with synchronous uploads (the lane's store, in host memory): a run
+   that crashes mid-step ``RESUME_CRASH_AT`` (8), then a ``resume=True``
+   run from the same engine factory and checkpointer. The uninterrupted
+   lane is 11's own 12-step run (its losses, peak and parameter digest
+   handed over in ``RESULTS``). Cuts against the benchmark's ``--quick``
+   (a manifest every 4, a crash at 6): a manifest every
+   ``RESUME_CKPT_EVERY`` (6) and a crash at 8, so that the store holds
+   manifests 0, 6 and 12 (60.1 GB of host memory, not 80.2 GB for 0, 4,
+   8, 12), while the resumed run still re-trains two uncommitted steps
+   and the crash still comes after the AZ outage. Checks: the crashed
+   run trained 0..7, the resumed one starts at 6 with its offsets
+   checked and trains 6..11; the committed prefix and the resumed steps
+   are 0..11 once each; the spliced losses are 11's bit for bit, and the
+   final parameters' sha256 11's; the manifests are exactly 0, 6 and 12,
+   each of the manifest's bytes; manifest 6's offsets are what the
+   resume replayed; each step call launches 11's kernels a step and no
+   other; the card holds under 0.5 GB between the two runs; the peak is
+   within ``RESTART_PEAK_MARGIN_GB`` of 11's; ``RESTART_HOST_SPARE_GB``
+   of host memory free around every save and the restore, and the
+   store's memory given back once it is deleted; no module of JAX
+   loaded. Prints each save's host copy and upload s, the restore's and
+   the fast-forward's s, both runs' step s, the store's retries and the
+   host memory around each. Last, ``python -m
+   repro_torch.launch.shuffle_train --steps 12 --crash-at 6`` and then
+   ``--resume`` (SMOKE, on the card) as two processes under one
+   temporary ``TMPDIR``: the first must print ``CRASHED``, the second
+   ``OK ... start_step=4``.
+13. ``deepseek_v2_lite_restart``: blob checkpoints and restart. The same
    3 layers, seed, batch and plain step as (a) of 10, 4 steps twice: once
    uninterrupted, and once driven by ``repro_torch.runtime``'s
    ``FaultTolerantTrainer`` (``ckpt_every`` 2, async uploads, one
@@ -213,7 +246,7 @@
    -m repro_torch.launch.train --arch deepseek-v2-lite-16b --steps 4
    --ckpt-every 2 --ckpt-dir <tmp>`` (SMOKE, on the card) must commit
    manifests 0, 2 and 4.
-13. Prints one ``kernels`` line: per kernel its launches on its main path
+14. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
@@ -245,7 +278,7 @@
    pack and unpack at one microbatch's shapes, with their launches a
    step and, for pack and unpack, those at the timed shape) and the SSD
    chunk's (``path`` ``kernel_grads``) follow.
-14. Ends with ``{"ok": true, "device": {...}}``.
+15. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -377,6 +410,13 @@ RESTART_HOST_SPARE_GB = 16.0    # host memory left free with every manifest held
 RESTART_PEAK_MARGIN_GB = 1.0    # over (a)'s plain peak
 RESTART_RELEASE_GB = 2.0        # host memory the deleted store may leave taken
 RESTART_RELEASE_S = 60.0        # for at most this long
+# the training benchmark's crash lane at published widths (phase
+# deepseek_v2_lite_shuffle_resume): the shuffle-fed phase's run with a
+# manifest every 6 steps and a crash mid-step 8, where the benchmark's
+# --quick has 4 and 6: a manifest of the 3 layers is 20.04 GB, and the
+# host holds manifests 0, 6 and 12 (60.1 GB), not 0, 4, 8 and 12
+RESUME_CKPT_EVERY = 6
+RESUME_CRASH_AT = 8
 # what an earlier phase hands a later one
 RESULTS = {}
 # the gradient sync against the plain mean of two pods' gradients: exact
@@ -2420,6 +2460,43 @@ def deepseek_v2_lite_train(seed: int) -> list:
     return train_rows
 
 
+def shuffle_fed_settings(seed: int):
+    """The shuffle-fed phase's model config (deepseek-v2-lite with
+    ``TRAIN_LAYERS`` layers), token stream, test mesh and train config,
+    and the kernels' launches a step, which the resume phase shares:
+    ``(cfg, stream, mesh, tcfg, kernels, per_step)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.blob_codec import kernel as codec_kernel
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.shuffle.api import ShuffleConfig
+    from repro_torch.train_input import TokenStreamConfig
+    from repro_torch.training import OptConfig, TrainConfig
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), num_layers=TRAIN_LAYERS)
+    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, batch=DECODER_PREFILL_BATCH,
+                               seq_len=PREFILL_LEN, seed=seed)
+    mesh = make_test_mesh(devices=8)
+    opt_cfg = OptConfig(learning_rate=1e-3, warmup_steps=2, total_steps=SHUFFLE_FED_STEPS)
+    tcfg = TrainConfig(opt=opt_cfg, microbatches=TRAIN_MICROBATCHES, remat="full",
+                       shuffle=ShuffleConfig(mode="blob", capacity_factor=SHUFFLE_FED_CAPACITY),
+                       grad_sync="blob_int8")
+    kernels = {kn.symbol: kn for kn in (pack_kernel.PACK, unpack_kernel.UNPACK,
+                                        codec_kernel.COMPRESS_PACK,
+                                        codec_kernel.UNPACK_DECOMPRESS,
+                                        *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
+    pods = mesh.shape["pod"]
+    per_step = {flash_kernel.FLASH_WGMMA.symbol: pods * TRAIN_FLASH_LAUNCHES,
+                pack_kernel.PACK.symbol: pods * TRAIN_PACK_LAUNCHES,
+                unpack_kernel.UNPACK.symbol: pods * TRAIN_PACK_LAUNCHES}
+    return cfg, stream, mesh, tcfg, kernels, per_step
+
+
 def deepseek_v2_lite_shuffle_fed(seed: int, smi: str) -> None:
     """Phase ``deepseek_v2_lite_shuffle_fed``: deepseek-v2-lite at published
     widths with ``TRAIN_LAYERS`` of its layers, trained on the card for
@@ -2436,23 +2513,16 @@ def deepseek_v2_lite_shuffle_fed(seed: int, smi: str) -> None:
     at least ``SHUFFLE_FED_OVERLAP``; finite losses, the mean of the last
     3 below that of the first 3; (c)'s flash, pack and unpack launches a
     step and no other kernel; no module of ``jax`` or of the JAX package
-    loaded."""
+    loaded. Hands its losses, steps, peak and final parameters' digest
+    to the resume phase through ``RESULTS``."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.blob_codec import kernel as codec_kernel
-    from repro_torch.kernels.blob_pack import kernel as pack_kernel
-    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.launch.engine import faulty_elastic_engine
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.shuffle.api import ShuffleConfig
-    from repro_torch.train_input import (ShuffleFedInput, TokenStreamConfig,
-                                         input_spec_report, lower_train_step,
-                                         reference_batch, train_shuffle_fed,
-                                         validate_device_batch)
-    from repro_torch.training import OptConfig, TrainConfig, make_train_step
+    from repro_torch.train_input import (ShuffleFedInput, input_spec_report,
+                                         lower_train_step, reference_batch,
+                                         train_shuffle_fed, validate_device_batch)
+    from repro_torch.training import make_train_step
 
     before = set(_foreign_modules())
     torch.cuda.synchronize()
@@ -2460,15 +2530,9 @@ def deepseek_v2_lite_shuffle_fed(seed: int, smi: str) -> None:
     held_gb = torch.cuda.memory_allocated() / 1e9
     check(held_gb < 0.5, f"device memory free before the shuffle-fed run: {held_gb} GB held")
     arch = "deepseek-v2-lite-16b"
-    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
-    B, S, steps = DECODER_PREFILL_BATCH, PREFILL_LEN, SHUFFLE_FED_STEPS
-    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, batch=B, seq_len=S, seed=seed)
-    mesh = make_test_mesh(devices=8)
-    pods = mesh.shape["pod"]
-    opt_cfg = OptConfig(learning_rate=1e-3, warmup_steps=2, total_steps=steps)
-    tcfg = TrainConfig(opt=opt_cfg, microbatches=TRAIN_MICROBATCHES, remat="full",
-                       shuffle=ShuffleConfig(mode="blob", capacity_factor=SHUFFLE_FED_CAPACITY),
-                       grad_sync="blob_int8")
+    cfg, stream, mesh, tcfg, kernels, per_step = shuffle_fed_settings(seed)
+    B, S, steps = stream.batch, stream.seq_len, SHUFFLE_FED_STEPS
+    opt_cfg = tcfg.opt
     clusters = []
 
     def engine_factory():
@@ -2492,23 +2556,17 @@ def deepseek_v2_lite_shuffle_fed(seed: int, smi: str) -> None:
     clusters.clear()
     torch.cuda.empty_cache()
 
-    kernels = {kn.symbol: kn for kn in (pack_kernel.PACK, unpack_kernel.UNPACK,
-                                        codec_kernel.COMPRESS_PACK,
-                                        codec_kernel.UNPACK_DECOMPRESS,
-                                        *flash_kernel.KERNELS, *ssd_kernel.KERNELS)}
-    per_step = {flash_kernel.FLASH_WGMMA.symbol: pods * TRAIN_FLASH_LAUNCHES,
-                pack_kernel.PACK.symbol: pods * TRAIN_PACK_LAUNCHES,
-                unpack_kernel.UNPACK.symbol: pods * TRAIN_PACK_LAUNCHES}
     step = make_train_step(cfg, tcfg, mesh=mesh)
-    served, secs = [], []
+    served, secs, model = [], [], []
 
     def recording_step(params, opt, batch):
-        # the batch as the trainer got it, and the step's device time
+        # the batch as the trainer got it, the step's device time, the model
         served.append(batch)
         t1 = time.perf_counter()
         out = step(params, opt, batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t1)
+        model[:] = out[:1]
         return out
 
     for kn in kernels.values():
@@ -2545,6 +2603,9 @@ def deepseek_v2_lite_shuffle_fed(seed: int, smi: str) -> None:
     check(rebalances >= 1, "the AZ outage rebalances the cluster")
     foreign = sorted(set(_foreign_modules()) - before)
     check(not foreign, f"the phase loads no module of jax or the JAX package: {foreign[:5]}")
+    RESULTS["deepseek_v2_lite_shuffle_fed"] = {
+        "losses": losses, "steps": res.steps, "peak_memory_gb": peak,
+        "params_digest": params_digest(model.pop())}
     median_s = statistics.median(secs[1:])
     emit({"phase": "deepseek_v2_lite_shuffle_fed", "nvidia_smi": smi, "arch": arch,
           "layers": cfg.num_layers, "published_layers": get_config(arch).num_layers,
@@ -2581,14 +2642,297 @@ def host_available_gb() -> float:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
+def host_released(start_gb: float):
+    """Wait, up to ``RESTART_RELEASE_S``, for a deleted store's host memory
+    to come back within ``RESTART_RELEASE_GB`` of ``start_gb`` (the host's
+    allocator may hand freed memory back to the system late); fails if it
+    does not. Returns (GB available, seconds waited)."""
+    t1 = time.perf_counter()
+    while True:
+        end_gb = host_available_gb()
+        release_s = time.perf_counter() - t1
+        if end_gb >= start_gb - RESTART_RELEASE_GB or release_s > RESTART_RELEASE_S:
+            break
+        time.sleep(0.5)
+    check(end_gb >= start_gb - RESTART_RELEASE_GB,
+          f"the store deleted: {end_gb} GB available against {start_gb} at the start, "
+          f"{release_s:.1f} s after")
+    return end_gb, release_s
+
+
+def host_headroom(n_manifests: int, n_params: int):
+    """The bytes of one checkpoint manifest (params, m and v in f32 and the
+    int32 count) and the host's available GB; fails unless the host holds
+    ``n_manifests`` of them with ``RESTART_HOST_SPARE_GB`` to spare."""
+    manifest_bytes = 3 * 4 * n_params + 4
+    need_gb = n_manifests * manifest_bytes / 1e9 + RESTART_HOST_SPARE_GB
+    start_gb = host_available_gb()
+    check(start_gb >= need_gb,
+          f"the host has {start_gb:.1f} GB available; {n_manifests} manifests of "
+          f"{manifest_bytes / 1e9:.2f} GB with {RESTART_HOST_SPARE_GB} GB to spare need "
+          f"{need_gb:.1f} GB")
+    return manifest_bytes, start_gb
+
+
+def manifest_sizes(manifests) -> list:
+    """Each manifest's bytes, summed over its leaves."""
+    return [sum(int(np.prod(e["shape"], dtype=np.int64)) * np.dtype(e["dtype"]).itemsize
+                for e in m["leaves"]) for m in manifests]
+
+
+def timed_restore(real_restore, restores: list):
+    """``real_restore`` wrapped to append its step, seconds and the host's
+    available GB before and after to ``restores``."""
+    def restore(step_, like, **kw):
+        avail = host_available_gb()
+        t1 = time.perf_counter()
+        out = real_restore(step_, like, **kw)
+        torch.cuda.synchronize()
+        restores.append({"step": step_, "s": time.perf_counter() - t1,
+                         "host_available_gb_before": avail,
+                         "host_available_gb_after": host_available_gb()})
+        return out
+    return restore
+
+
+def host_low_checked(saves: list, restores: list) -> float:
+    """The least host GB available read around the saves and restores;
+    fails if it is below ``RESTART_HOST_SPARE_GB``."""
+    low = min(v for r in saves + restores for k, v in r.items() if k.startswith("host_avail"))
+    check(low >= RESTART_HOST_SPARE_GB,
+          f"{RESTART_HOST_SPARE_GB} GB of host memory free around every save and the "
+          f"restore: {low}")
+    return low
+
+
+def store_readout(store):
+    """A tiered store's retries and the GB its remote tier holds."""
+    return store.retries, sum(len(o.data) for o in store.store.inner.objects.values()) / 1e9
+
+
 def params_digest(model) -> dict:
     """sha256 of each parameter's bytes, a parameter at a time on the host."""
     return {name: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
             for name, p in model.named_parameters()}
 
 
+def deepseek_v2_lite_shuffle_resume(seed: int, smi: str) -> None:
+    """Phase ``deepseek_v2_lite_shuffle_resume`` (step 12 above): the
+    training benchmark's crash lane at published widths. The shuffle-fed
+    phase's run, checkpointed into the lane's store with synchronous
+    uploads, crashes mid-step ``RESUME_CRASH_AT`` and resumes; the
+    uninterrupted lane is the shuffle-fed phase's own run (``RESULTS``).
+    Then the shuffle-fed launcher's crash and resume as two processes."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import BlobCheckpointer, TieredCheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.core.stores import FaultyStore, SimulatedS3
+    from repro_torch.launch.engine import faulty_elastic_engine
+    from repro_torch.train_input import ShuffleFedInput, train_shuffle_fed
+    from repro_torch.training import make_train_step
+
+    fed = RESULTS["deepseek_v2_lite_shuffle_fed"]
+    before_modules = set(_foreign_modules())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before the resume phase: {held_gb} GB held")
+    arch = "deepseek-v2-lite-16b"
+    cfg, stream, mesh, tcfg, kernels, per_step = shuffle_fed_settings(seed)
+    steps, every, crash_at = SHUFFLE_FED_STEPS, RESUME_CKPT_EVERY, RESUME_CRASH_AT
+    resume_at = crash_at // every * every
+    committed = sorted({0, *range(every, steps + 1, every)})
+    n_params = cfg.param_count()
+    manifest_bytes, start_gb = host_headroom(len(committed), n_params)
+
+    # the crash lane's store (benchmarks/train_input.py), synchronous uploads
+    store = TieredCheckpointStore(FaultyStore(SimulatedS3(seed=31), seed=33,
+                                              transient_p=0.05))
+    ckpt = BlobCheckpointer(store, async_upload=False)
+    saves, restores, forwards, first_put = [], [], [], []
+    real = {"save": ckpt.save, "restore": ckpt.restore, "put": store.put,
+            "fast_forward": ShuffleFedInput.fast_forward}
+
+    def marking_put(blob_id, data):
+        # a synchronous save copies every leaf to the host, then uploads:
+        # its first upload is the end of the host copy and the host's low
+        if not first_put:
+            first_put.extend([time.perf_counter(), host_available_gb()])
+        real["put"](blob_id, data)
+
+    def timed_save(step_, tree, **kw):
+        avail = host_available_gb()
+        first_put.clear()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        real["save"](step_, tree, **kw)
+        t2 = time.perf_counter()
+        saves.append({"step": step_, "host_copy_s": first_put[0] - t1,
+                      "upload_s": t2 - first_put[0], "s": t2 - t1,
+                      "host_available_gb_before": avail,
+                      "host_available_gb_copied": first_put[1],
+                      "host_available_gb_after": host_available_gb()})
+
+    def timed_fast_forward(pipeline, resume_step, expected_offsets=None):
+        t1 = time.perf_counter()
+        real["fast_forward"](pipeline, resume_step, expected_offsets)
+        forwards.append({"step": resume_step, "s": time.perf_counter() - t1,
+                         "offsets": {str(k): v for k, v in pipeline.offsets().items()}})
+
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    secs, model = [], []
+
+    def counting_step(params, opt, batch):
+        t1 = time.perf_counter()
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs[-1].append(time.perf_counter() - t1)
+        model[:] = out[:1]
+        return out
+
+    def run(**kw):
+        secs.append([])
+        t0 = time.perf_counter()
+        res = train_shuffle_fed(cfg, tcfg, mesh, stream, steps=steps,
+                                engine_factory=lambda: faulty_elastic_engine()[0], ckpt=ckpt,
+                                ckpt_every=every, step_fn=counting_step, init_seed=seed,
+                                pipeline_kwargs=SHUFFLE_FED_PIPELINE, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    ckpt.save, ckpt.restore = timed_save, timed_restore(real["restore"], restores)
+    store.put = marking_put
+    ShuffleFedInput.fast_forward = timed_fast_forward
+    for kn in kernels.values():
+        kn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        broken, broken_s = run(crash_at_step=crash_at)
+        model.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        between_gb = torch.cuda.memory_allocated() / 1e9
+        check(between_gb < 0.5, f"the crashed run's state is gone from the card: "
+                                f"{between_gb} GB held")
+        resumed, resumed_s = run(resume=True)
+    finally:
+        ShuffleFedInput.fast_forward = real["fast_forward"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {s_: kn.launches for s_, kn in kernels.items()}
+    n_calls = sum(len(x) for x in secs)
+
+    check(broken.crashed and broken.steps == list(range(crash_at)),
+          f"the crashed run trained 0..{crash_at - 1}: {broken.steps}")
+    check(not resumed.crashed and resumed.start_step == resume_at and resumed.offsets_checked
+          and resumed.steps == list(range(resume_at, steps)),
+          f"the resumed run starts at {resume_at}, its offsets checked, and trains "
+          f"{resume_at}..{steps - 1}: {resumed.start_step}, {resumed.offsets_checked}, "
+          f"{resumed.steps}")
+    timeline = broken.steps[:resume_at] + resumed.steps
+    check(timeline == list(range(steps)) == fed["steps"],
+          f"the committed prefix and the resumed steps are 0..{steps - 1} once each "
+          f"(0 skipped, 0 duplicated): {timeline}")
+    spliced = broken.losses[:resume_at] + resumed.losses
+    check(spliced == fed["losses"],
+          f"the spliced losses {spliced} are the shuffle-fed run's {fed['losses']} "
+          f"bit for bit")
+    final_digest = params_digest(model.pop())
+    differ = sorted(n for n in fed["params_digest"] if final_digest[n] != fed["params_digest"][n])
+    check(not differ, f"the final parameters are the shuffle-fed run's bit for bit: "
+                      f"{len(differ)} differ, {differ[:5]}")
+    names = store.manifests()
+    check(names == [f"step{s_:08d}.json" for s_ in committed],
+          f"manifests {committed} committed: {names}")
+    manifests = [store.get_manifest(name) for name in names]
+    sizes = manifest_sizes(manifests)
+    check(sizes == [manifest_bytes] * len(names),
+          f"each manifest {manifest_bytes} bytes: {sizes}")
+    check([m["extra"]["next_step"] for m in manifests] == committed,
+          f"each manifest's next step is its own: {[m['extra'] for m in manifests]}")
+    replayed = manifests[committed.index(resume_at)]["extra"]["offsets"]
+    check([f["step"] for f in forwards] == [resume_at] and forwards[0]["offsets"] == replayed,
+          f"manifest {resume_at}'s offsets {replayed} are what the resume replayed: {forwards}")
+    check([r["step"] for r in restores] == [resume_at], f"one restore, of {resume_at}: {restores}")
+    check(n_calls == crash_at + steps - resume_at,
+          f"{crash_at} steps crashed and {steps - resume_at} resumed: {n_calls} step calls")
+    check(launches == {s_: n_calls * per_step.get(s_, 0) for s_ in kernels},
+          f"{n_calls} step calls: {per_step} a step and no other kernel: {launches}")
+    check(peak <= fed["peak_memory_gb"] + RESTART_PEAK_MARGIN_GB,
+          f"peak {peak} GB within {RESTART_PEAK_MARGIN_GB} GB of the shuffle-fed run's "
+          f"{fed['peak_memory_gb']}")
+    low_gb = host_low_checked(saves, restores)
+    retries, store_gb = store_readout(store)
+    stats = {name: {k: r.input_stats[k] for k in ("records_delivered", "records_replayed",
+                                                   "duplicate_rows_filtered", "skipped_rows",
+                                                   "requests", "overlap_fraction")}
+             for name, r in (("crashed", broken), ("resumed", resumed))}
+    crashed_losses, resumed_losses = broken.losses, resumed.losses
+    del ckpt, real, store, broken, resumed, manifests
+    gc.collect()
+    torch.cuda.empty_cache()
+    end_gb, release_s = host_released(start_gb)
+
+    # the launcher on the card: SMOKE, a crash and a resume in two processes
+    launcher = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for args, want in ((["--crash-at", "6"], "CRASHED"),
+                           (["--resume"], "OK mode=blob grad_sync=auto start_step=4 ")):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.shuffle_train", "--steps", "12",
+                 *args], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "TMPDIR": tmp})
+            seconds = time.perf_counter() - t0
+            check(out.returncode == 0, f"the shuffle-fed launcher {args}: rc "
+                                       f"{out.returncode}: {out.stderr[-2000:]}")
+            last = out.stdout.strip().splitlines()[-1]
+            check(last.startswith(want), f"the shuffle-fed launcher {args} prints {want!r}: "
+                                         f"{last!r}")
+            launcher.append({"args": args, "seconds": seconds, "last_line": last})
+    foreign = sorted(set(_foreign_modules()) - before_modules)
+    check(not foreign, f"the phase loads no module of jax or the JAX package: {foreign[:5]}")
+    emit({"phase": "deepseek_v2_lite_shuffle_resume", "nvidia_smi": smi, "arch": arch,
+          "layers": cfg.num_layers, "published_layers": get_config(arch).num_layers,
+          "params": n_params, "batch": stream.batch, "seq": stream.seq_len, "steps": steps,
+          "mesh": mesh.shape, "microbatches": TRAIN_MICROBATCHES, "remat": "full",
+          "compute_dtype": "bfloat16", "shuffle": "blob", "grad_sync": "blob_int8",
+          "capacity_factor": SHUFFLE_FED_CAPACITY, "opt": dataclasses.asdict(tcfg.opt),
+          "engine": "faulty_elastic_engine (FaultyStore 2% over ExpressOneZoneStore, "
+                    "9 partitions, 3 instances, AZ 1 out at 0.30 s)",
+          "pipeline": SHUFFLE_FED_PIPELINE,
+          "store": "TieredCheckpointStore(FaultyStore(SimulatedS3(seed=31), seed=33, "
+                   "transient_p=0.05)) in host memory, synchronous uploads",
+          "ckpt_every": every, "crash_at_step": crash_at,
+          "cuts": {"ckpt_every": "6, the benchmark's --quick 4",
+                   "crash_at_step": "8, the benchmark's --quick 6",
+                   "why": "a manifest is 20.04 GB: the host holds 0, 6 and 12 (60.1 GB), "
+                          "not 0, 4, 8 and 12 (80.2 GB)"},
+          "uninterrupted": "the deepseek_v2_lite_shuffle_fed phase's run",
+          "clocks": "every *_s: the host's clock, synchronised; a save's host_copy_s runs "
+                    "to its first upload (host_available_gb_copied read there), upload_s "
+                    "from there to its manifest; store_release_s the wait for the deleted "
+                    "store's memory",
+          "resume_step": resume_at, "timeline": timeline, "losses": spliced,
+          "crashed_losses": crashed_losses, "resumed_losses": resumed_losses,
+          "manifests": names, "manifest_bytes": manifest_bytes, "store_gb": store_gb,
+          "replayed_offsets": forwards[0]["offsets"], "saves": saves, "restores": restores,
+          "fast_forward_s": forwards[0]["s"], "retries": retries,
+          "crashed_run_s": broken_s, "resumed_run_s": resumed_s,
+          "crashed_step_s": secs[0], "resumed_step_s": secs[1],
+          "input": stats, "step_calls": n_calls,
+          "launches_per_step": {s_: c // n_calls for s_, c in launches.items() if c},
+          "device_gb_between_runs": between_gb,
+          "peak_memory_gb": peak, "shuffle_fed_peak_gb": fed["peak_memory_gb"],
+          "host_available_gb": {"start": start_gb, "min": low_gb, "end": end_gb},
+          "store_release_s": release_s, "host_spare_gb": RESTART_HOST_SPARE_GB,
+          "launcher": launcher, "ok": True})
+
+
 def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
-    """Phase ``deepseek_v2_lite_restart`` (step 12 above): (a)'s plain
+    """Phase ``deepseek_v2_lite_restart`` (step 13 above): (a)'s plain
     step restarted from blob checkpoints by ``FaultTolerantTrainer``,
     bit for bit against the uninterrupted run; then the train launcher's
     ``--ckpt-dir`` on the card."""
@@ -2616,14 +2960,7 @@ def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
     arch = "deepseek-v2-lite-16b"
     cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
     n_params = cfg.param_count()
-    # params, m and v in f32 and the int32 count: the manifest's bytes
-    manifest_bytes = 3 * 4 * n_params + 4
-    need_gb = 3 * manifest_bytes / 1e9 + RESTART_HOST_SPARE_GB
-    start_gb = host_available_gb()
-    check(start_gb >= need_gb,
-          f"the host has {start_gb:.1f} GB available; 3 manifests of "
-          f"{manifest_bytes / 1e9:.2f} GB with {RESTART_HOST_SPARE_GB} GB to spare need "
-          f"{need_gb:.1f} GB")
+    manifest_bytes, start_gb = host_headroom(3, n_params)
     B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
     opt_cfg = OptConfig(learning_rate=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
     step = make_train_step(cfg, TrainConfig(
@@ -2707,17 +3044,8 @@ def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
             saves[-1].update(commit_wait_s=time.perf_counter() - t1,
                              host_available_gb_committed=host_available_gb())
 
-    def timed_restore(step_, like, **kw):
-        avail = host_available_gb()
-        t1 = time.perf_counter()
-        out = real["restore"](step_, like, **kw)
-        torch.cuda.synchronize()
-        restores.append({"step": step_, "s": time.perf_counter() - t1,
-                         "host_available_gb_before": avail,
-                         "host_available_gb_after": host_available_gb()})
-        return out
-
-    ckpt.save, ckpt.restore, ckpt.wait = timed_save, timed_restore, timed_wait
+    ckpt.save, ckpt.wait = timed_save, timed_wait
+    ckpt.restore = timed_restore(real["restore"], restores)
     runs.clear()
     for kn in kernels.values():
         kn.launches = 0
@@ -2738,11 +3066,7 @@ def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
     names = store.manifests()
     check(names == [f"step{s_:08d}.json" for s_ in (0, 2, 4)],
           f"manifests 0, 2 and 4 committed: {names}")
-    sizes = []
-    for name in names:
-        m = store.get_manifest(name)
-        sizes.append(sum(int(np.prod(e["shape"], dtype=np.int64))
-                         * np.dtype(e["dtype"]).itemsize for e in m["leaves"]))
+    sizes = manifest_sizes(store.get_manifest(name) for name in names)
     check(sizes == [manifest_bytes] * 3, f"each manifest {manifest_bytes} bytes: {sizes}")
     check([r["step"] for r in restores] == [2], f"one restore, of step 2: {restores}")
     check(losses == plain_losses,
@@ -2755,27 +3079,12 @@ def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
     train_peak = RESULTS["deepseek_v2_lite_train"]["peak_memory_gb"]
     check(peak <= train_peak + RESTART_PEAK_MARGIN_GB,
           f"peak {peak} GB within {RESTART_PEAK_MARGIN_GB} GB of (a)'s {train_peak}")
-    lows = [v for r in saves + restores for k, v in r.items() if k.startswith("host_avail")]
-    check(min(lows) >= RESTART_HOST_SPARE_GB,
-          f"{RESTART_HOST_SPARE_GB} GB of host memory free around every save and the "
-          f"restore: {min(lows)}")
-    retries = store.retries
-    store_gb = sum(len(o.data) for o in store.store.inner.objects.values()) / 1e9
+    low_gb = host_low_checked(saves, restores)
+    retries, store_gb = store_readout(store)
     del trainer, ckpt, real, store, params, opt, batch
     gc.collect()
     torch.cuda.empty_cache()
-    # the host's allocator may hand freed memory back to the system late:
-    # wait for it, up to RESTART_RELEASE_S
-    t1 = time.perf_counter()
-    while True:
-        end_gb = host_available_gb()
-        release_s = time.perf_counter() - t1
-        if end_gb >= start_gb - RESTART_RELEASE_GB or release_s > RESTART_RELEASE_S:
-            break
-        time.sleep(0.5)
-    check(end_gb >= start_gb - RESTART_RELEASE_GB,
-          f"the store deleted: {end_gb} GB available against {start_gb} at the start, "
-          f"{release_s:.1f} s after")
+    end_gb, release_s = host_released(start_gb)
 
     # the launcher on the card: SMOKE, its checkpoints into a temporary directory
     with tempfile.TemporaryDirectory() as tmp:
@@ -2808,7 +3117,7 @@ def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
                     "memory to come back",
           "manifests": names, "manifest_bytes": manifest_bytes, "store_gb": store_gb,
           "saves": saves, "restores": restores, "retries": retries,
-          "host_available_gb": {"start": start_gb, "min": min(lows), "end": end_gb},
+          "host_available_gb": {"start": start_gb, "min": low_gb, "end": end_gb},
           "store_release_s": release_s,
           "host_spare_gb": RESTART_HOST_SPARE_GB,
           "losses": losses, "uninterrupted_losses": plain_losses,
@@ -2865,6 +3174,7 @@ def main(argv=None) -> int:
     rows += kernel_grads(args.seed)
     rows += deepseek_v2_lite_train(args.seed)
     deepseek_v2_lite_shuffle_fed(args.seed, smi)
+    deepseek_v2_lite_shuffle_resume(args.seed, smi)
     deepseek_v2_lite_restart(args.seed, smi)
     emit({"kernels": rows})
     torch.cuda.synchronize()

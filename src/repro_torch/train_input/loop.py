@@ -1,20 +1,48 @@
-"""Shuffle-fed training loop, the port of ``repro.train_input.loop``
-without its checkpoints.
+"""Shuffle-fed training loop with blob checkpointing and crash/resume,
+the port of ``repro.train_input.loop``.
 
 ``train_shuffle_fed`` makes the two halves of the repo one system: an
 ``AsyncShuffleEngine`` (built fresh and deterministically by
 ``engine_factory``) feeds batches through ``ShuffleFedInput`` into the
-port's ``make_train_step``, which updates the ``lm.LM`` in place.
-Parameters are drawn by ``init_model`` (a test swaps in the JAX
-package's through ``interop.params_from_jax``); a numpy batch (no mesh)
-goes to the parameters' device before the step.
+port's ``make_train_step``, which updates the ``lm.LM`` in place; every
+``ckpt_every`` steps the model and optimizer state is checkpointed
+through ``BlobCheckpointer`` with the pipeline's committed per-partition
+offsets riding in the manifest's ``extra`` — model state and input
+progress commit atomically. Parameters are drawn
+by ``init_model`` (a test swaps in the JAX package's through
+``interop.params_from_jax``); a numpy batch (no mesh) goes to the
+parameters' device before the step.
 
-``crash_at_step=s`` raises ``SimulatedCrash`` after step ``s``'s batch
-was fetched but before the step runs, as in the JAX package. The blob
-checkpointer is ported (``repro_torch.checkpoint``), but this loop's
-resume path is not yet (``ROADMAP.md`` queue 1 item 3b): a ``ckpt`` is
-refused, and so is ``resume=True``, which needs one. With it will come
-``fast_forward``'s resume path and the step-0 manifest.
+The state saved and restored is ``interop.train_state_tree(model,
+opt)``, the JAX package's train state tree over the model's and the
+optimizer's own tensors, built anew at each save (the step returns a
+new optimizer state); ``save`` copies it to the host before it
+returns, and a restore writes it into the fresh model in place. So the
+store holds the JAX package's layout, and either package resumes the
+other's checkpoints.
+
+Crash/resume contract (the resume-after-AZ-outage scenario of the JAX
+package's ``benchmarks/train_input.py``):
+
+* ``crash_at_step=s`` raises ``SimulatedCrash`` after step ``s``'s batch
+  was fetched but before the step runs — a crash mid-step, with
+  uncommitted work in flight;
+* a ``resume=True`` run restores the latest manifest, rebuilds the
+  engine from the same factory (the virtual-clock replay is
+  bit-deterministic), fast-forwards the pipeline past the committed
+  prefix, and cross-checks the replayed per-partition offsets against
+  the manifest — so the resumed run re-trains exactly the uncommitted
+  steps and nothing else;
+* records are step-keyed (``train_input.tokens``) and parameters are
+  stored as raw bytes, so the resumed loss trajectory is bit-identical
+  to an uninterrupted run's.
+
+For a deterministic crash window use a synchronous checkpointer
+(``async_upload=False``): with async uploads, a manifest scheduled just
+before the crash may or may not become visible — exactly the real-world
+ambiguity, but not a reproducible gate. As in the JAX package, a run
+whose ``steps`` is a multiple of ``ckpt_every`` saves its last step
+twice, at its period and at the end.
 """
 
 from __future__ import annotations
@@ -25,6 +53,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.checkpoint import latest_step
+from repro_torch.interop import train_state_tree
 from repro_torch.models import lm
 from repro_torch.models.common import init_params
 from repro_torch.train_input.pipeline import ShuffleFedInput
@@ -61,13 +91,9 @@ def train_shuffle_fed(model_cfg, tcfg, mesh, stream: TokenStreamConfig, *,
                       step_fn=None, init_seed: int = 0,
                       pipeline_kwargs: Optional[dict] = None,
                       device="cuda") -> ShuffleTrainResult:
-    """Run a shuffle-fed training session on ``device``. See module doc."""
+    """Run (or resume) shuffle-fed training on ``device``. See module doc."""
     if resume and ckpt is None:
         raise ValueError("resume=True requires a checkpointer")
-    if ckpt is not None:
-        raise NotImplementedError(
-            "the shuffle-fed loop's checkpoints and resume path are not ported "
-            "yet (ROADMAP.md queue 1 item 3b): train_shuffle_fed runs with ckpt=None")
     engine = engine_factory()
     pipeline = ShuffleFedInput(engine, stream, steps=steps, mesh=mesh,
                                model_cfg=model_cfg, device=device,
@@ -80,12 +106,29 @@ def train_shuffle_fed(model_cfg, tcfg, mesh, stream: TokenStreamConfig, *,
     if step_fn is None:
         step_fn = make_train_step(model_cfg, tcfg, mesh=mesh)
 
+    start, offsets_checked = 0, False
+    if resume:
+        last = latest_step(ckpt.store)
+        if last is None:
+            raise RuntimeError("resume requested but no committed manifest")
+        m = ckpt.manifest(last)
+        ckpt.restore(last, train_state_tree(params, opt))    # in place
+        start = int(m["extra"]["next_step"])
+        pipeline.fast_forward(start, m["extra"]["offsets"])
+        offsets_checked = True
+    elif ckpt is not None:
+        # step-0 manifest: a crash before the first periodic checkpoint
+        # still restores to a well-defined state
+        ckpt.save(0, train_state_tree(params, opt),
+                  extra={"next_step": 0, "offsets": {}})
+        ckpt.wait()
+
     losses: List[float] = []
     trained: List[int] = []
     step_time_s = 0.0
     crashed = False
     try:
-        for s in range(steps):
+        for s in range(start, steps):
             got, batch, _hit = pipeline.next_batch()
             assert got == s, f"pipeline served {got}, trainer at {s}"
             if crash_at_step is not None and s == crash_at_step:
@@ -98,10 +141,21 @@ def train_shuffle_fed(model_cfg, tcfg, mesh, stream: TokenStreamConfig, *,
             step_time_s += time.perf_counter() - t0
             losses.append(loss)
             trained.append(s)
+            if ckpt is not None and (s + 1) % ckpt_every == 0:
+                pipeline.commit(s + 1)
+                ckpt.save(s + 1, train_state_tree(params, opt),
+                          extra={"next_step": s + 1,
+                                 "offsets": pipeline.offsets()})
     except SimulatedCrash:
-        crashed = True     # process "dies": no drain
+        crashed = True     # process "dies": no final commit, no drain
 
     if not crashed:
+        if ckpt is not None:
+            pipeline.commit(steps)
+            ckpt.save(steps, train_state_tree(params, opt),
+                      extra={"next_step": steps,
+                             "offsets": pipeline.offsets()})
+            ckpt.wait()
         pipeline.finish()
 
     m = engine.metrics
@@ -120,5 +174,5 @@ def train_shuffle_fed(model_cfg, tcfg, mesh, stream: TokenStreamConfig, *,
         "host_prefetch_s": pipeline.host_prefetch_s,
         "step_time_s": step_time_s,
     }
-    return ShuffleTrainResult(0, trained, losses, crashed, False, stats,
-                              pipeline, engine)
+    return ShuffleTrainResult(start, trained, losses, crashed,
+                              offsets_checked, stats, pipeline, engine)

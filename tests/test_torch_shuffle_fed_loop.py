@@ -21,8 +21,9 @@ over by ``interop.params_from_jax`` (``loop.init_model`` swapped).
     ``validate_device_batch`` report equal the port's. Two microbatches:
     with one, JAX 0.9's SPMD partitioner aborts on the sharded batch.
 (c) ``crash_at_step`` gives ``crashed`` and JAX's trained prefix.
-(d) ``ckpt`` and ``resume=True`` are refused (JAX's message for the
-    latter).
+(d) ``resume=True`` without a checkpointer is refused with JAX's
+    ``ValueError`` and message (the resume path itself:
+    ``tests/test_torch_shuffle_fed_resume.py``).
 (e) The four CI gates of ``.github/workflows/ci.yml`` that need no
     checkpoint, on the port alone at the benchmark's ``--quick``
     settings (``benchmarks/train_input.py``): the loss decreasing, no
@@ -267,14 +268,13 @@ def test_a_crash_keeps_jax_s_trained_prefix(monkeypatch, jax_plain):
     assert res.input_stats["requests"] == jres.input_stats["requests"] == 4
 
 
-def test_checkpoints_are_refused():
+def test_resume_without_a_checkpointer_is_refused_as_in_jax():
     _, cfg = _cfgs()
     stream = TokenStreamConfig(cfg.vocab_size, 4, 16, 0)
-    kw = dict(steps=2, engine_factory=lambda: _outage_engine("repro_torch"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3b"):
-        loop.train_shuffle_fed(cfg, TrainConfig(), None, stream, ckpt=object(), **kw)
     with pytest.raises(ValueError) as got:
-        loop.train_shuffle_fed(cfg, TrainConfig(), None, stream, resume=True, **kw)
+        loop.train_shuffle_fed(cfg, TrainConfig(), None, stream, steps=2, resume=True,
+                               engine_factory=lambda: _outage_engine("repro_torch"),
+                               device="cpu")
     jcfg, _ = _cfgs()
     with pytest.raises(ValueError) as want:
         jtrain_shuffle_fed(jcfg, JTrainConfig(), None, JStream(jcfg.vocab_size, 4, 16, 0),
