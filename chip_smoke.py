@@ -246,7 +246,27 @@
    -m repro_torch.launch.train --arch deepseek-v2-lite-16b --steps 4
    --ckpt-every 2 --ckpt-dir <tmp>`` (SMOKE, on the card) must commit
    manifests 0, 2 and 4.
-14. Prints one ``kernels`` line: per kernel its launches on its main path
+14. ``deepseek_v2_lite_elastic``: the elastic restore. The same 3 layers'
+   parameters (1,670,135,296 f32, drawn on the card from the seed) and
+   two restore plans from ``repro_torch.runtime.elastic_restore_plan``
+   over ``lm.param_defs`` and ``DEFAULT_RULES``: ``EP_MESH``'s (pod 2 x
+   data 1 x model 16: dp_degree 2, 32 devices) and ``ELASTIC_MESH``'s
+   (pod 1 x data 4 x model 4: 4, 16). The parameters are saved with
+   synchronous uploads into a ``TieredCheckpointStore(SimulatedS3)`` in
+   host memory (one params-only manifest, 4 bytes a parameter; the host
+   must hold it with ``RESTART_HOST_SPARE_GB`` to spare), then restored
+   with ``shardings=`` the second plan's into a model drawn from another
+   seed: every parameter's sha256 must equal the saved one's, and one
+   prefill of each model through ``make_prefill_step`` (4 x 4,096
+   tokens) must give the same logits bit for bit, each launching the
+   wgmma flash kernel (D 192) 3 times and the pack and unpack kernels
+   twice, and no other kernel. Prints both plans' ``dp_degree``,
+   ``devices`` and sharded leaves, the leaves whose spec differs between
+   them, the save's host copy and upload s and the restore's s (host
+   clock), the host memory around each, the peak device memory (of the
+   path, and with the checks' temporaries over the two logits) and the
+   launches; then deletes the store, whose host memory must come back.
+15. Prints one ``kernels`` line: per kernel its launches on its main path
    (the round trip, or one prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
@@ -278,7 +298,7 @@
    pack and unpack at one microbatch's shapes, with their launches a
    step and, for pack and unpack, those at the timed shape) and the SSD
    chunk's (``path`` ``kernel_grads``) follow.
-15. Ends with ``{"ok": true, "device": {...}}``.
+16. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -417,6 +437,10 @@ RESTART_RELEASE_S = 60.0        # for at most this long
 # host holds manifests 0, 6 and 12 (60.1 GB), not 0, 4, 8 and 12
 RESUME_CKPT_EVERY = 6
 RESUME_CRASH_AT = 8
+# deepseek-v2-lite restored onto another mesh (phase
+# deepseek_v2_lite_elastic): the 3 layers' parameters saved under
+# EP_MESH's plan (32 stacked ranks) and restored under this mesh's (16)
+ELASTIC_MESH = {"pod": 1, "data": 4, "model": 4}
 # what an earlier phase hands a later one
 RESULTS = {}
 # the gradient sync against the plain mean of two pods' gradients: exact
@@ -2660,18 +2684,17 @@ def host_released(start_gb: float):
     return end_gb, release_s
 
 
-def host_headroom(n_manifests: int, n_params: int):
-    """The bytes of one checkpoint manifest (params, m and v in f32 and the
-    int32 count) and the host's available GB; fails unless the host holds
-    ``n_manifests`` of them with ``RESTART_HOST_SPARE_GB`` to spare."""
-    manifest_bytes = 3 * 4 * n_params + 4
+def host_headroom(n_manifests: int, manifest_bytes: int) -> float:
+    """The host's available GB; fails unless the host holds
+    ``n_manifests`` checkpoint manifests of ``manifest_bytes`` each with
+    ``RESTART_HOST_SPARE_GB`` to spare."""
     need_gb = n_manifests * manifest_bytes / 1e9 + RESTART_HOST_SPARE_GB
     start_gb = host_available_gb()
     check(start_gb >= need_gb,
           f"the host has {start_gb:.1f} GB available; {n_manifests} manifests of "
           f"{manifest_bytes / 1e9:.2f} GB with {RESTART_HOST_SPARE_GB} GB to spare need "
           f"{need_gb:.1f} GB")
-    return manifest_bytes, start_gb
+    return start_gb
 
 
 def manifest_sizes(manifests) -> list:
@@ -2745,7 +2768,8 @@ def deepseek_v2_lite_shuffle_resume(seed: int, smi: str) -> None:
     resume_at = crash_at // every * every
     committed = sorted({0, *range(every, steps + 1, every)})
     n_params = cfg.param_count()
-    manifest_bytes, start_gb = host_headroom(len(committed), n_params)
+    manifest_bytes = 3 * 4 * n_params + 4   # params, m and v in f32, the int32 count
+    start_gb = host_headroom(len(committed), manifest_bytes)
 
     # the crash lane's store (benchmarks/train_input.py), synchronous uploads
     store = TieredCheckpointStore(FaultyStore(SimulatedS3(seed=31), seed=33,
@@ -2960,7 +2984,8 @@ def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
     arch = "deepseek-v2-lite-16b"
     cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
     n_params = cfg.param_count()
-    manifest_bytes, start_gb = host_headroom(3, n_params)
+    manifest_bytes = 3 * 4 * n_params + 4   # params, m and v in f32, the int32 count
+    start_gb = host_headroom(3, manifest_bytes)
     B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
     opt_cfg = OptConfig(learning_rate=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
     step = make_train_step(cfg, TrainConfig(
@@ -3132,6 +3157,173 @@ def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
           "ok": True})
 
 
+def deepseek_v2_lite_elastic(seed: int, smi: str) -> None:
+    """Phase ``deepseek_v2_lite_elastic`` (step 14 above): the parameters
+    of (a)'s 3 layers saved under ``EP_MESH``'s restore plan and restored
+    under ``ELASTIC_MESH``'s into a model drawn from another seed, bit for
+    bit, and a prefill of each model bit for bit the same."""
+    import dataclasses
+    import weakref
+
+    from repro_torch.checkpoint import BlobCheckpointer, TieredCheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.core.stores import SimulatedS3
+    from repro_torch.distributed import DEFAULT_RULES
+    from repro_torch.interop import params_tree
+    from repro_torch.kernels.blob_codec import kernel as codec_kernel
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.mesh import stacked_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params
+    from repro_torch.runtime import elastic_restore_plan
+    from repro_torch.serving import ServeConfig, make_prefill_step
+
+    before_modules = set(_foreign_modules())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before the elastic phase: {held_gb} GB held")
+    arch = "deepseek-v2-lite-16b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_LAYERS)
+    n_params = cfg.param_count()
+    # one params-only manifest: every parameter of deepseek-v2-lite is f32
+    manifest_bytes = 4 * n_params   # the params alone, in f32
+    start_gb = host_headroom(1, manifest_bytes)
+
+    defs = lm.param_defs(cfg)
+    meshes = {"ep": stacked_mesh(**EP_MESH), "elastic": stacked_mesh(**ELASTIC_MESH)}
+    plans = {k: elastic_restore_plan(defs, DEFAULT_RULES, m) for k, m in meshes.items()}
+
+    def specs(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {p: v for k, sub in tree.items() for p, v in specs(sub, f"{prefix}/{k}").items()}
+        return {prefix: tree.spec}
+
+    plan_specs = {k: specs(plan["shardings"]) for k, plan in plans.items()}
+    check(sorted(plan_specs["ep"]) == sorted(plan_specs["elastic"]),
+          "both plans cover the same leaves")
+    sharded = {k: sum(any(part is not None for part in sp) for sp in v.values())
+               for k, v in plan_specs.items()}
+    differ = {p: [str(plan_specs["ep"][p]), str(plan_specs["elastic"][p])]
+              for p in sorted(plan_specs["ep"]) if plan_specs["ep"][p] != plan_specs["elastic"][p]}
+    check((plans["ep"]["dp_degree"], plans["ep"]["devices"]) == (2, 32)
+          and (plans["elastic"]["dp_degree"], plans["elastic"]["devices"]) == (4, 16),
+          f"the plans' dp_degree and devices: {[(p['dp_degree'], p['devices']) for p in plans.values()]}")
+    check(bool(differ), "the two meshes' plans differ on some leaf")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def draw(seed_):
+        gen = torch.Generator(device="cuda").manual_seed(seed_)
+        return init_params(lm.LM(cfg, device="cuda"), gen)
+
+    saved = draw(seed)
+    check(sum(p.numel() for p in saved.parameters()) == n_params, f"{n_params} parameters")
+    saved_digest = params_digest(saved)
+    restored = draw(seed + 1)
+    drawn_differ = sum(d != saved_digest[n] for n, d in params_digest(restored).items())
+
+    store = TieredCheckpointStore(SimulatedS3(seed=41))
+    ckpt = BlobCheckpointer(store, async_upload=False)
+    first_put, saves, restores = [], [], []
+    real_put = store.put
+
+    def marking_put(blob_id, data):
+        # a synchronous save copies every leaf to the host, then uploads
+        if not first_put:
+            first_put.extend([time.perf_counter(), host_available_gb()])
+        real_put(blob_id, data)
+
+    store.put = marking_put
+    avail = host_available_gb()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ckpt.save(1, params_tree(saved))
+    t2 = time.perf_counter()
+    saves.append({"host_copy_s": first_put[0] - t1, "upload_s": t2 - first_put[0],
+                  "s": t2 - t1, "host_available_gb_before": avail,
+                  "host_available_gb_copied": first_put[1],
+                  "host_available_gb_after": host_available_gb()})
+    sizes = manifest_sizes([ckpt.manifest(1)])
+    check(sizes == [manifest_bytes], f"the manifest holds {manifest_bytes} bytes: {sizes}")
+    like = params_tree(restored)
+    out = timed_restore(ckpt.restore, restores)(1, like,
+                                                shardings=plans["elastic"]["shardings"])
+    check(out.keys() == like.keys(), "restore returns like's structure")
+    restored_digest = params_digest(restored)
+    wrong = sorted(n for n in saved_digest if restored_digest[n] != saved_digest[n])
+    check(not wrong, f"every restored parameter's sha256 is the saved one's: "
+                     f"{len(wrong)} differ, {wrong[:5]}")
+    low_gb = host_low_checked(saves, restores)
+    store_gb = sum(len(o.data) for o in store.store.objects.values()) / 1e9
+    store_alive = weakref.ref(store.store)
+    del ckpt, store, real_put, marking_put, out, like
+    gc.collect()
+    check(store_alive() is None, "nothing holds the deleted store")
+
+    # one prefill of each model: the restored one's logits are the saved one's
+    kernels = (pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
+               codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, *ssd_kernel.KERNELS)
+    per_prefill = {kn.symbol: 0 for kn in kernels}
+    per_prefill.update({flash_kernel.FLASH_WGMMA.symbol: cfg.num_layers,
+                        pack_kernel.PACK.symbol: cfg.num_layers - cfg.moe.first_dense_layers,
+                        unpack_kernel.UNPACK.symbol: cfg.num_layers - cfg.moe.first_dense_layers})
+    B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
+    batch = prefill_batch(cfg, torch.Generator(device="cuda").manual_seed(seed + 2), B, S)
+    prefill = make_prefill_step(cfg, ServeConfig())
+    logits, launches, prefill_s = {}, {}, {}
+    for name, model in (("saved", saved), ("restored", restored)):
+        torch.cuda.synchronize()
+        for kn in kernels:
+            kn.launches = 0
+        t1 = time.perf_counter()
+        logits[name] = prefill(model, batch)
+        torch.cuda.synchronize()
+        prefill_s[name] = time.perf_counter() - t1
+        launches[name] = {kn.symbol: kn.launches for kn in kernels}
+        check(launches[name] == per_prefill,
+              f"the {name} model's prefill launches {per_prefill}: {launches[name]}")
+    # the path's peak (draws, save, restore, both prefills), before the
+    # checks' temporaries over the two logits
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(logits["saved"]).all()), "finite logits")
+    check(same_bits(logits["restored"], logits["saved"]),
+          "the restored model's prefill logits are the saved model's bit for bit")
+    logits_shape = list(logits["saved"].shape)
+    checks_peak = torch.cuda.max_memory_allocated() / 1e9
+    del saved, restored, logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    end_gb, release_s = host_released(start_gb)
+    foreign = sorted(set(_foreign_modules()) - before_modules)
+    check(not foreign, f"the phase loads no module of jax or the JAX package: {foreign[:5]}")
+    emit({"phase": "deepseek_v2_lite_elastic", "nvidia_smi": smi, "arch": arch,
+          "layers": cfg.num_layers, "published_layers": get_config(arch).num_layers,
+          "params": n_params, "manifest_bytes": manifest_bytes, "store_gb": store_gb,
+          "store": "TieredCheckpointStore(SimulatedS3(seed=41)) in host memory, "
+                   "synchronous uploads",
+          "plans": {k: {"mesh": meshes[k].shape, "dp_degree": plan["dp_degree"],
+                        "devices": plan["devices"], "leaves": len(plan_specs[k]),
+                        "sharded_leaves": sharded[k]} for k, plan in plans.items()},
+          "leaves_whose_spec_differs": differ,
+          "params_differing_before_restore": drawn_differ,
+          "params_equal_after_restore": len(saved_digest) - len(wrong),
+          "clocks": "every *_s: the host's clock, synchronised; host_copy_s is the save's "
+                    "device-to-host copy, upload_s its upload into the store",
+          "save": saves[0], "restore": restores[0],
+          "host_available_gb": {"start": start_gb, "min": low_gb, "end": end_gb},
+          "store_release_s": release_s, "host_spare_gb": RESTART_HOST_SPARE_GB,
+          "prefill": {"batch": B, "seq": S, "logits_shape": logits_shape,
+                      "logits_bit_equal": True, "seconds": prefill_s,
+                      "launches": {k: {s_: c for s_, c in v.items() if c}
+                                   for k, v in launches.items()}},
+          "peak_memory_gb": peak, "peak_with_checks_gb": checks_peak, "ok": True})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3176,6 +3368,7 @@ def main(argv=None) -> int:
     deepseek_v2_lite_shuffle_fed(args.seed, smi)
     deepseek_v2_lite_shuffle_resume(args.seed, smi)
     deepseek_v2_lite_restart(args.seed, smi)
+    deepseek_v2_lite_elastic(args.seed, smi)
     emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -26,8 +26,15 @@ AdamW moments takes the JAX package's tree through
 
 ``restore`` writes each leaf into ``like``'s leaf in place (on its device,
 in its dtype), so restoring a train state holds no second copy of it on
-the card. JAX's elastic restore (``shardings=``) is refused:
-``distributed.sharding``'s parameter part is not ported.
+the card. The elastic restore (``shardings=``, a tree of
+``distributed.NamedSharding`` in ``like``'s structure, as
+``runtime.elastic_restore_plan`` gives) makes the checks of JAX's
+``device_put`` before any write: a spec of at most the leaf's rank,
+distinct axes of the sharding's mesh, and each sharded dim divisible by
+its axes' product. On a ``StackedMesh`` every rank lives in this process
+and the port's model holds global parameters, so each leaf is written
+whole. A ``ProcessGroupMesh``, one block a process, is refused: it waits
+for the process-group train step (``ROADMAP.md`` queue 1 item 6).
 
 The checkpointer is store-agnostic: ``FileStore`` here for real
 filesystems, ``repro_torch.checkpoint.tiered.TieredCheckpointStore`` to
@@ -42,6 +49,7 @@ with the model state it belongs to.
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
 import time
@@ -50,6 +58,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import NamedSharding
+from repro_torch.launch.mesh import ProcessGroupMesh, StackedMesh
 
 PyTree = Any
 
@@ -218,6 +229,41 @@ def _fill(ref, src: torch.Tensor) -> None:
                         f"{type(ref).__name__} is not a tensor or an array")
 
 
+def _check_shardings(like_spec, leaves: list, shardings) -> None:
+    """Refuse a ``shardings`` tree that ``restore`` cannot place ``like``'s
+    leaves by (``ValueError``), as JAX's ``device_put`` would."""
+    sh_leaves, sh_spec = _flatten(shardings)
+    if sh_spec != like_spec:
+        raise ValueError(f"shardings must have like's structure, leaf for leaf: "
+                         f"{_treedef_str(sh_spec)} is not {_treedef_str(like_spec)}")
+    for i, (ref, sh) in enumerate(zip(leaves, sh_leaves)):
+        if not isinstance(sh, NamedSharding):
+            raise ValueError(f"leaf {i}: a NamedSharding, not {type(sh).__name__}")
+        if isinstance(sh.mesh, ProcessGroupMesh):
+            raise ValueError(
+                f"leaf {i}: a restore onto a ProcessGroupMesh (one block a process) "
+                f"waits for the process-group train step (ROADMAP.md queue 1 item 6)")
+        if not isinstance(sh.mesh, StackedMesh):
+            raise ValueError(f"leaf {i}: a NamedSharding over a StackedMesh, not "
+                             f"{type(sh.mesh).__name__}")
+        shape, sizes = tuple(ref.shape), sh.mesh.shape
+        if len(sh.spec) > len(shape):
+            raise ValueError(f"leaf {i}: {sh.spec} has more entries than the "
+                             f"leaf's rank {len(shape)} ({shape})")
+        used: list = []
+        for dim, part in zip(shape, sh.spec):
+            axes = () if part is None else (part,) if isinstance(part, str) else tuple(part)
+            unknown = [a for a in axes if a not in sizes]
+            if unknown or any(a in used for a in axes):
+                raise ValueError(f"leaf {i}: {sh.spec} names {unknown or axes}, not "
+                                 f"distinct axes of the mesh {sizes}")
+            used += axes
+            n = math.prod(sizes[a] for a in axes)
+            if dim % n:
+                raise ValueError(f"leaf {i} {shape}: dim {dim} does not divide by "
+                                 f"{n}, the size of {axes} ({sh.spec})")
+
+
 class BlobCheckpointer:
     def __init__(self, store, *, async_upload: bool = True):
         self.store = store
@@ -294,14 +340,12 @@ class BlobCheckpointer:
     def restore(self, step: int, like: PyTree, *, shardings: PyTree = None
                 ) -> PyTree:
         """Restore into ``like``'s leaves, in place, and return them in
-        ``like``'s structure. JAX's refusals stand: no committed manifest
-        (``FileNotFoundError``), another leaf count or shape
-        (``AssertionError``, raised also under ``python -O``)."""
-        if shardings is not None:
-            raise ValueError(
-                "elastic restore (shardings=) is not ported: it needs "
-                "distributed.sharding's parameter part (ROADMAP.md queue 1 "
-                "item 4)")
+        ``like``'s structure; ``shardings`` places them on another mesh
+        (see the module docstring). JAX's refusals stand: no committed
+        manifest (``FileNotFoundError``), another leaf count or shape
+        (``AssertionError``, raised also under ``python -O``); a
+        ``shardings`` tree that cannot place ``like`` raises
+        ``ValueError``."""
         m = self.store.get_manifest(f"step{step:08d}.json")
         if m is None:
             raise FileNotFoundError(f"no committed checkpoint for {step}")
@@ -313,6 +357,8 @@ class BlobCheckpointer:
             if list(ref.shape) != entry["shape"]:
                 raise AssertionError(
                     f"shape mismatch {tuple(ref.shape)} vs {entry['shape']}")
+        if shardings is not None:
+            _check_shardings(spec, leaves, shardings)
         with torch.no_grad():   # like's leaves may be parameters
             for ref, entry in zip(leaves, m["leaves"]):
                 _fill(ref, _decode(self.store.get(entry["blob"]),

@@ -1,5 +1,5 @@
 """Logical-axis -> mesh-axis sharding rules with divisibility fallback, the
-part of ``repro.distributed.sharding`` that the training input needs.
+port of ``repro.distributed.sharding``.
 
 Every array carries *logical* axis names on its ``ArraySpec`` (see
 ``repro_torch.models.common``). A ``ShardingRules`` table maps those
@@ -12,8 +12,12 @@ rails, as the JAX package does:
 
 The port has no ``jax.sharding``: ``PartitionSpec`` is a tuple whose
 ``str()`` is JAX's, and ``NamedSharding`` pairs it with its mesh (a
-``repro_torch.launch.mesh`` mesh, of which only ``shape`` is read). The
-parameter shardings (``named_shardings``, ``constrain``) are not ported.
+``repro_torch.launch.mesh`` mesh, of which only ``shape`` is read).
+``named_shardings`` maps a nested dict of parameter specs
+(``models.lm.param_defs``) to the same dict of ``NamedSharding``s, which
+``runtime.elastic_restore_plan`` and ``BlobCheckpointer.restore`` read.
+``constrain`` has no twin: it is a layout hint under ``jit``
+(``with_sharding_constraint``), and the JAX package calls it nowhere.
 """
 
 from __future__ import annotations
@@ -93,6 +97,13 @@ def partition_spec(spec: ArraySpec, rules: ShardingRules, mesh) -> PartitionSpec
         parts.append(tuple(chosen) if len(chosen) > 1
                      else (chosen[0] if chosen else None))
     return PartitionSpec(*parts)
+
+
+def named_shardings(defs, rules: ShardingRules, mesh):
+    """ArraySpec tree (nested dicts) -> the same tree of NamedShardings."""
+    if isinstance(defs, dict):
+        return {k: named_shardings(v, rules, mesh) for k, v in defs.items()}
+    return NamedSharding(mesh, partition_spec(defs, rules, mesh))
 
 
 def batch_specs(shapes: Dict[str, ArraySpec], rules: ShardingRules, mesh):

@@ -8,8 +8,9 @@ tensors, keeping dicts, tuples and named tuples as they are.
 package's parameter tree into the port's model modules, and
 ``cache_from_jax`` its decode cache. ``train_state_tree`` lays the port's
 train state (the model and its AdamW state) out as the JAX package's
-tree, which ``train_state_to_jax`` copies to numpy and
-``train_state_from_jax`` loads back onto a device.
+tree (``params_tree`` lays out the parameters alone), which
+``train_state_to_jax`` copies to numpy and ``train_state_from_jax`` loads
+back onto a device.
 Both keep every bit: a JAX bf16 array converts to numpy with the
 ``ml_dtypes`` bfloat16 dtype, which ``torch.from_numpy`` refuses, so bf16
 crosses as its uint16 bit pattern.
@@ -19,6 +20,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models import lm
+from repro_torch.training.optimizer import adamw_init
 
 
 def _is_tuple(obj) -> bool:
@@ -101,8 +105,7 @@ def params_from_jax(cfg, params, device="cuda"):
     """The JAX package's parameter tree for ``cfg`` (leaves as numpy or
     array-likes, every layer stacked on a leading ``layers`` axis) -> the
     port's ``repro_torch.models.lm.LM`` on ``device``, bit for bit."""
-    from repro_torch.models.lm import LM
-    model = LM(cfg, device=device)
+    model = lm.LM(cfg, device=device)
     with torch.no_grad():
         for name, p in model.named_parameters():
             t = to_torch(_jax_leaf(params, name), device)
@@ -146,35 +149,10 @@ class StackedRows:
         return self
 
 
-def _insert(tree: dict, path, leaf) -> None:
-    for part in path[:-1]:
-        tree = tree.setdefault(part, {})
-    tree[path[-1]] = leaf
-
-
-def _jax_layout(tensors: dict) -> dict:
-    """Tensors keyed by the port's parameter names -> the JAX package's
-    nested tree of them, each ``blocks.<i>.<path>`` (``dense_blocks``)
-    a row of the ``StackedRows`` at ``blocks/<path>``; the inverse of
-    ``_jax_leaf``."""
-    groups: dict = {}
-    for name, t in tensors.items():
-        parts = name.split(".")
-        layer = None
-        if parts[0] in ("blocks", "dense_blocks"):
-            layer = int(parts.pop(1))
-        groups.setdefault(tuple(parts), []).append((layer, t))
-    tree: dict = {}
-    for path, rows in groups.items():
-        if rows[0][0] is None:
-            (_, leaf), = rows
-        else:
-            layers = [layer for layer, _ in rows]
-            if layers != list(range(len(rows))):
-                raise ValueError(f"{'.'.join(path)}: layers {layers} are not 0..{len(rows) - 1}")
-            leaf = StackedRows(t for _, t in rows)
-        _insert(tree, path, leaf)
-    return tree
+def params_tree(model) -> dict:
+    """The port's model's parameters as the JAX package's parameter tree,
+    each stacked leaf a ``StackedRows`` over the layers' tensors."""
+    return lm.jax_layout(dict(model.named_parameters()), StackedRows)
 
 
 def train_state_tree(model, opt: dict) -> dict:
@@ -184,9 +162,10 @@ def train_state_tree(model, opt: dict) -> dict:
     tensors (a stacked leaf a ``StackedRows`` over the layers' tensors),
     so ``np.asarray`` of a leaf copies it to the host and ``copy_`` into
     it writes the state in place."""
-    return {"opt": {"count": opt["count"], "m": _jax_layout(opt["m"]),
-                    "v": _jax_layout(opt["v"])},
-            "params": _jax_layout(dict(model.named_parameters()))}
+    return {"opt": {"count": opt["count"],
+                    "m": lm.jax_layout(opt["m"], StackedRows),
+                    "v": lm.jax_layout(opt["v"], StackedRows)},
+            "params": params_tree(model)}
 
 
 def _map_leaves(fn, tree):
@@ -207,9 +186,7 @@ def train_state_from_jax(cfg, state: dict, device="cuda"):
     """The JAX package's train state tree for ``cfg`` (``{"opt": {"count",
     "m", "v"}, "params": ...}``, leaves numpy or array-likes) -> the port's
     ``(lm.LM, AdamW state)`` on ``device``, bit for bit."""
-    from repro_torch.models.lm import LM
-    from repro_torch.training.optimizer import adamw_init
-    model = LM(cfg, device=device)
+    model = lm.LM(cfg, device=device)
     opt = adamw_init(model)
 
     def load(target, leaf, path):

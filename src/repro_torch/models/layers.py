@@ -30,20 +30,23 @@ def norm_spec(d: int) -> ArraySpec:
 class MLP(ParamModule):
     """The MLP of ``cfg.mlp``: SwiGLU and GeGLU hold ``w_gate``, ``w_up``,
     ``w_down``; plain GELU ``w_up``, ``b_up``, ``w_down``, ``b_down``
-    (the biases initialised to zero)."""
+    (the biases initialised to zero). ``hidden_axis`` is the logical axis
+    of the hidden dim (``None``: replicated, as the MoE shared experts)."""
 
-    def __init__(self, cfg: ModelConfig, d_ff: int, device):
+    def __init__(self, cfg: ModelConfig, d_ff: int, device, *,
+                 hidden_axis: str | None = "mlp"):
         super().__init__()
         d, pd = cfg.d_model, cfg.param_dtype
-        w_up = ArraySpec((d, d_ff), pd, ("embed", "mlp"))
-        w_down = ArraySpec((d_ff, d), pd, ("mlp", "embed"))
+        w_up = ArraySpec((d, d_ff), pd, ("embed", hidden_axis))
+        w_down = ArraySpec((d_ff, d), pd, (hidden_axis, "embed"))
         if cfg.mlp in ("swiglu", "geglu"):
             self.declare("w_gate", w_up, device)
             self.declare("w_up", w_up, device)
             self.declare("w_down", w_down, device)
         else:
             self.declare("w_up", w_up, device)
-            self.declare("b_up", ArraySpec((d_ff,), pd, ("mlp",), init="zeros"), device)
+            self.declare("b_up", ArraySpec((d_ff,), pd, (hidden_axis,), init="zeros"),
+                         device)
             self.declare("w_down", w_down, device)
             self.declare("b_down", ArraySpec((d,), pd, ("embed",), init="zeros"), device)
 

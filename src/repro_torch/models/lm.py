@@ -29,6 +29,7 @@ for input. A vision model's decode step takes tokens only.
 
 Public surface:
   * ``LM(cfg, device="cuda")``                 - the parameters
+  * ``param_defs(cfg)``                        - the JAX package's spec tree
   * ``forward(cfg, params, batch, mesh=None, shuffle=DENSE, remat="none")``
                                                - (logits, aux) for training and prefill
   * ``cache_defs(cfg, batch, max_seq)``        - decode cache specs
@@ -58,6 +59,7 @@ chunk computes in f32 only.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -170,6 +172,63 @@ class LM(ParamModule):
                 (n_inv, concat_dim, cfg.d_model), cfg.param_dtype,
                 ("stack", "embed", None)), device)
         self.declare("final_norm", L.norm_spec(cfg.d_model), device)
+
+
+def _insert(tree: dict, path, leaf) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = leaf
+
+
+def jax_layout(leaves: dict, stack) -> dict:
+    """Leaves keyed by ``LM``'s parameter names -> the JAX package's
+    nested tree of them, the leaves of each ``blocks.<i>.<path>``
+    (``dense_blocks``) stacked by ``stack`` (called on the layers' leaves
+    in order) into the leaf at ``blocks/<path>``. Specs stack into one
+    spec (``param_defs``), tensors into ``interop.StackedRows`` (the train
+    state's tree)."""
+    groups: dict = {}
+    for name, t in leaves.items():
+        parts = name.split(".")
+        layer = None
+        if parts[0] in ("blocks", "dense_blocks"):
+            layer = int(parts.pop(1))
+        groups.setdefault(tuple(parts), []).append((layer, t))
+    tree: dict = {}
+    for path, rows in groups.items():
+        if rows[0][0] is None:
+            (_, leaf), = rows
+        else:
+            layers = [layer for layer, _ in rows]
+            if layers != list(range(len(rows))):
+                raise ValueError(f"{'.'.join(path)}: layers {layers} are not 0..{len(rows) - 1}")
+            leaf = stack([t for _, t in rows])
+        _insert(tree, path, leaf)
+    return tree
+
+
+def _stack_specs(rows: list) -> ArraySpec:
+    """The layers' equal specs -> one spec on a leading ``layers`` axis."""
+    first = rows[0]
+    if any(r != first for r in rows):
+        raise ValueError(f"the layers' specs differ: {sorted(set(rows), key=repr)}")
+    axes = first.axes or (None,) * len(first.shape)
+    return dataclasses.replace(first, shape=(len(rows), *first.shape),
+                               axes=("layers", *axes))
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    """The JAX package's ``ArraySpec`` tree (``repro.models.lm.param_defs``),
+    read off the specs of ``LM(cfg)`` built on the meta device (no memory):
+    each spec keyed by its parameter's path, the ``blocks.<i>`` and
+    ``dense_blocks.<i>`` rows stacked on a leading ``layers`` axis by
+    ``jax_layout``, the grouping of the train state's tree; the
+    hybrid ``shared_block`` and ``shared_in`` stay unstacked."""
+    model = LM(cfg, device="meta")
+    specs = {f"{path}.{name}" if path else name: spec
+             for path, m in model.named_modules() if isinstance(m, ParamModule)
+             for name, spec in m.specs.items()}
+    return jax_layout(specs, _stack_specs)
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,11 @@ class MoE(ParamModule):
                                           ("experts", "expert_mlp", "embed")), device)
         if m.num_shared:
             # the JAX package's shared w_gate/w_up/w_down, with the SwiGLU
-            # MLP's fan-in (d, then num_shared * d_e)
-            self.shared = L.MLP(_swiglu(cfg), m.num_shared * de, device)
+            # MLP's fan-in (d, then num_shared * d_e); the hidden dim is
+            # replicated (logical axis None), as in the JAX package:
+            # model-sharding it would fight the sequence-sharded residual
+            self.shared = L.MLP(_swiglu(cfg), m.num_shared * de, device,
+                                hidden_axis=None)
 
 
 def _swiglu(cfg: ModelConfig) -> ModelConfig:

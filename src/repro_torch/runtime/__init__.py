@@ -1,9 +1,12 @@
 """The runtime layer of the port: ``FaultTolerantTrainer`` (blob
-checkpoints and restart) and ``HedgedFetcher`` (a copy of the JAX
-package's straggler hedging). The JAX package's ``elastic_restore_plan``
-derives shardings for another mesh through ``distributed.sharding``'s
-``named_shardings``, whose parameter part is not ported (``ROADMAP.md``
-queue 1 item 4); it comes with it."""
+checkpoints and restart), ``HedgedFetcher`` (a copy of the JAX package's
+straggler hedging) and ``elastic_restore_plan`` (the JAX package's file
+under the copy rule but for one line: the port's meshes hold no device
+array, so the device count is ``new_mesh.size``), whose shardings
+``BlobCheckpointer.restore(..., shardings=)`` takes on a ``StackedMesh``.
+The restore onto a ``ProcessGroupMesh``, one block a process, waits for
+the process-group train step (``ROADMAP.md`` queue 1 item 6)."""
 
 from repro_torch.runtime.fault_tolerance import FaultTolerantTrainer
 from repro_torch.runtime.stragglers import HedgedFetcher
+from repro_torch.runtime.elastic import elastic_restore_plan

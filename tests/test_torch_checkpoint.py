@@ -13,8 +13,15 @@ JAX package's (``repro.checkpoint``).
 * The in-place hazard: the port's train step writes the model's tensors
   in place, so ``save`` copies them off the device before it returns; a
   save still uploading when the tensors change keeps the old bits.
-* The refusals, each the JAX package's exception for the same case,
-  and the port's refusal of ``shardings=``.
+* The elastic restore: a JAX-written train state restored with
+  ``shardings=`` from ``elastic_restore_plan`` on the 4-rank test mesh,
+  bit for bit.
+* The refusals, each the JAX package's exception for the same case, and
+  the ``shardings=`` trees that cannot place ``like`` (another
+  structure, a leaf that is no ``NamedSharding``, a spec longer than the
+  leaf's rank, a dim that does not divide, an axis the mesh lacks or
+  names twice, a ``ProcessGroupMesh``): each ``ValueError`` before any
+  blob is read.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_checkpoint.py
 """
@@ -42,11 +49,14 @@ from repro_torch.checkpoint import (BlobCheckpointer, FileStore,
 from repro_torch.configs import get_config
 from repro_torch.core.stores import (ExpressOneZoneStore, FaultyStore,
                                      SimulatedS3)
+from repro_torch.distributed import DEFAULT_RULES, NamedSharding, PartitionSpec
 from repro_torch.interop import (assert_same_bits, params_from_jax,
                                  train_state_from_jax, train_state_to_jax,
                                  train_state_tree)
+from repro_torch.launch.mesh import ProcessGroupMesh, make_test_mesh, stacked_mesh
 from repro_torch.models import lm
 from repro_torch.models.common import init_params
+from repro_torch.runtime import elastic_restore_plan
 from repro_torch.training import TrainConfig, adamw_init, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -218,6 +228,25 @@ def test_a_jax_checkpoint_restores_in_the_port(tmp_path, arch):
 
 
 @pytest.mark.parametrize("arch", ORACLE_ARCHS)
+def test_a_jax_checkpoint_restores_in_the_port_onto_another_mesh(tmp_path, arch):
+    """The elastic restore of a JAX-written train state: the params, m and
+    v placed by ``elastic_restore_plan``'s shardings on the 4-rank test
+    mesh, the count replicated; bit for bit."""
+    state = _jax_state(arch)
+    JBlobCheckpointer(JFileStore(str(tmp_path)), async_upload=False).save(3, state)
+    cfg = get_config(arch, smoke=True)
+    mesh = make_test_mesh(devices=4)
+    plan = elastic_restore_plan(lm.param_defs(cfg), DEFAULT_RULES, mesh)
+    shardings = {"opt": {"count": NamedSharding(mesh, PartitionSpec()),
+                         "m": plan["shardings"], "v": plan["shardings"]},
+                 "params": plan["shardings"]}
+    model, opt = _fresh(arch)
+    BlobCheckpointer(FileStore(str(tmp_path))).restore(
+        3, train_state_tree(model, opt), shardings=shardings)
+    _same_tree(train_state_to_jax(model, opt), state)
+
+
+@pytest.mark.parametrize("arch", ORACLE_ARCHS)
 def test_a_port_checkpoint_restores_in_jax(tmp_path, arch):
     state = _jax_state(arch)
     model, opt = train_state_from_jax(get_config(arch, smoke=True), state, device="cpu")
@@ -346,11 +375,54 @@ def test_restore_refuses_as_jax_does(tmp_path, case):
         assert np.array_equal(torch_like[k].numpy(), v)
 
 
-def test_elastic_restore_is_refused(tmp_path):
-    ck = BlobCheckpointer(FileStore(str(tmp_path)), async_upload=False)
-    ck.save(1, _tree(1))
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        ck.restore(1, _tree(0), shardings={"w": None})
+class _CountingStore(FileStore):
+    """A ``FileStore`` that counts the blobs read."""
+    gets = 0
+
+    def get(self, blob_id):
+        self.gets += 1
+        return super().get(blob_id)
+
+
+def _sharding_refusals():
+    mesh = stacked_mesh(data=2, model=2)
+    ok = NamedSharding(mesh, PartitionSpec())
+    return {
+        "structure": ({"w": ok}, "structure"),
+        "not a NamedSharding": ({"w": mesh, "c": ok}, "NamedSharding"),
+        "rank": ({"w": NamedSharding(mesh, PartitionSpec("data", None, None)), "c": ok},
+                 "rank"),
+        "divisibility": ({"w": NamedSharding(mesh, PartitionSpec(None, ("data", "model"))),
+                          "c": ok}, "divide"),
+        "unknown axis": ({"w": NamedSharding(mesh, PartitionSpec("pod")), "c": ok}, "axes"),
+        "repeated axis": ({"w": NamedSharding(mesh, PartitionSpec("data", "data")),
+                           "c": ok}, "axes"),
+        "process group": ({"w": NamedSharding(ProcessGroupMesh(("data", "model"), (2, 2)),
+                                              PartitionSpec("data")), "c": ok},
+                          "queue 1 item 6"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_sharding_refusals()))
+def test_restore_refuses_shardings_that_cannot_place_like(tmp_path, case):
+    """Each refusal raises ``ValueError`` before any blob is read or any
+    leaf written; the valid sharding restores whole."""
+    shardings, match = _sharding_refusals()[case]
+    saved = {"w": np.arange(24, dtype=np.float32).reshape(4, 6), "c": np.asarray(3, np.int32)}
+    BlobCheckpointer(FileStore(str(tmp_path)), async_upload=False).save(1, saved)
+    store = _CountingStore(str(tmp_path))
+    like = {"w": torch.zeros(4, 6), "c": torch.zeros((), dtype=torch.int32)}
+    with pytest.raises(ValueError, match=match):
+        BlobCheckpointer(store).restore(1, like, shardings=shardings)
+    assert store.gets == 0
+    assert not like["w"].any() and int(like["c"]) == 0
+    mesh = stacked_mesh(data=2, model=2)
+    good = {"w": NamedSharding(mesh, PartitionSpec("data", "model")),
+            "c": NamedSharding(mesh, PartitionSpec())}
+    out = BlobCheckpointer(store).restore(1, like, shardings=good)
+    assert out["w"] is like["w"] and store.gets == 2
+    for k in saved:
+        assert_same_bits(like[k], saved[k])
 
 
 def test_restore_writes_only_into_tensors_and_arrays(tmp_path):

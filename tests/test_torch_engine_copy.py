@@ -20,7 +20,8 @@ are the training input's ``train_input/tokens.py`` and ``__init__.py``,
 and ``train_input/pipeline.py`` but for ``_make_device_put`` and the
 two lines that carry its ``device`` keyword. And so are the checkpoint
 and runtime layers' store-level modules: ``checkpoint/tiered.py``,
-``checkpoint/__init__.py`` and ``runtime/stragglers.py``.
+``checkpoint/__init__.py`` and ``runtime/stragglers.py``; and
+``runtime/elastic.py`` but for its device count, ``new_mesh.size``.
 """
 
 import ast
@@ -160,7 +161,8 @@ def test_the_train_input_package_holds_the_copies_and_its_own_modules():
 
 # ---------------------------------------------------------------------------
 # the checkpoint and runtime layers: ``checkpoint/tiered.py`` and
-# ``__init__.py`` and ``runtime/stragglers.py`` are copies under the rule;
+# ``__init__.py`` and ``runtime/stragglers.py`` are copies under the rule,
+# ``runtime/elastic.py`` one with a recorded edit;
 # ``blobstore_ckpt.py`` (which imports jax and ml_dtypes) and
 # ``fault_tolerance.py`` are the port's own, held against JAX's by
 # ``tests/test_torch_checkpoint.py`` and ``tests/test_torch_fault_tolerance.py``
@@ -174,13 +176,22 @@ def test_checkpoint_and_runtime_copy_equals_its_original_after_the_rewrite(name)
     _same(rewrite((JAX_PKG / name).read_text()), (PORT / name).read_text(), name)
 
 
+def test_the_elastic_plan_is_a_copy_but_for_the_device_count():
+    """``runtime/elastic.py`` is the JAX package's under the rule with one
+    edit: the port's meshes hold no device array, so the plan's device
+    count is ``new_mesh.size`` for JAX's ``new_mesh.devices.size``."""
+    want = rewrite((JAX_PKG / "runtime" / "elastic.py").read_text())
+    assert want.count("new_mesh.devices.size") == 1
+    _same(want.replace("new_mesh.devices.size", "new_mesh.size"),
+          (PORT / "runtime" / "elastic.py").read_text(), "runtime/elastic.py")
+
+
 def test_the_checkpoint_and_runtime_packages_hold_the_copies_and_their_own_modules():
-    """Every file of the JAX package's ``checkpoint`` has a twin; its
-    ``runtime`` has all but ``elastic.py``, which needs the parameter part
-    of ``distributed.sharding`` (``ROADMAP.md`` queue 1 item 4)."""
+    """Every file of the JAX package's ``checkpoint`` and ``runtime`` has a
+    twin, and the port has no other."""
     def names(root, pkg):
         return {p.name for p in (root / pkg).glob("*.py")}
     assert names(JAX_PKG, "checkpoint") == names(PORT, "checkpoint") == \
         {"__init__.py", "blobstore_ckpt.py", "tiered.py"}
-    assert names(JAX_PKG, "runtime") - names(PORT, "runtime") == {"elastic.py"}
-    assert names(PORT, "runtime") == {"__init__.py", "fault_tolerance.py", "stragglers.py"}
+    assert names(JAX_PKG, "runtime") == names(PORT, "runtime") == \
+        {"__init__.py", "elastic.py", "fault_tolerance.py", "stragglers.py"}

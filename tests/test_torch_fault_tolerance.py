@@ -9,18 +9,24 @@ launcher's ``--ckpt-dir`` / ``--ckpt-every``.
 * The hedged fetch on the port's copy of ``runtime/stragglers.py``.
 * The launcher commits manifests 0, 2 and 4, which JAX's
   ``BlobCheckpointer`` restores into JAX's own train state tree.
-
-``test_elastic_restore_different_mesh`` has no twin here: the elastic
-restore needs ``distributed.sharding``'s parameter part, which waits for
-``ROADMAP.md`` queue 1 item 4 (the port's ``restore`` refuses
-``shardings=``, ``tests/test_torch_checkpoint.py``).
+* ``test_elastic_restore_different_mesh``'s twin: granite-3-2b SMOKE
+  placed by the 8-rank test mesh's plan, saved, and restored by the
+  4-rank mesh's plan, bit for bit; both plans' ``dp_degree``, device
+  count and every leaf's ``PartitionSpec`` are JAX's own, read from a
+  JAX subprocess on 8 forced host devices.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_fault_tolerance.py
 """
 
 import dataclasses
 import gc
+import json
+import os
+import subprocess
+import sys
+import textwrap
 import weakref
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -40,16 +46,19 @@ from repro.training import adamw_init as jadamw_init
 from repro.training import make_train_step as jmake_train_step
 from repro_torch.checkpoint import BlobCheckpointer, FileStore, latest_step
 from repro_torch.configs import get_config
+from repro_torch.distributed import DEFAULT_RULES
 from repro_torch.interop import (assert_same_bits, params_from_jax,
-                                 train_state_to_jax)
+                                 train_state_to_jax, train_state_tree)
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import lm
 from repro_torch.models.common import init_params
-from repro_torch.runtime import FaultTolerantTrainer, HedgedFetcher
+from repro_torch.runtime import FaultTolerantTrainer, HedgedFetcher, elastic_restore_plan
 from repro_torch.runtime.fault_tolerance import InjectedFailure
 from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
                                   make_train_step)
 
 LOSS_RTOL = 1e-5   # test_train_step_matches_jax's
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -198,6 +207,73 @@ def test_trainer_matches_jax_trainer_with_failures(tmp_path):
         np.testing.assert_allclose(a, b, atol=4e-5, rtol=LOSS_RTOL)
 
 
+_JAX_PLANS = textwrap.dedent("""
+    import os
+    os.environ['XLA_FLAGS'] = '--xla_force_host_platform_device_count=8'
+    import json
+    from repro.configs import get_config
+    from repro.distributed.sharding import DEFAULT_RULES
+    from repro.launch.mesh import make_test_mesh
+    from repro.models import lm
+    from repro.runtime import elastic_restore_plan
+
+    def specs(tree, prefix=''):
+        if isinstance(tree, dict):
+            return {p: s for k, v in tree.items() for p, s in specs(v, prefix + '/' + k).items()}
+        return {prefix: str(tree.spec)}
+
+    defs = lm.param_defs(get_config('granite-3-2b', smoke=True))
+    out = {}
+    for n in (8, 4):
+        plan = elastic_restore_plan(defs, DEFAULT_RULES, make_test_mesh(devices=n))
+        out[n] = {'dp_degree': plan['dp_degree'], 'devices': plan['devices'],
+                  'specs': specs(plan['shardings'])}
+    print('PLANS', json.dumps(out))
+    """)
+
+
+def _shardings(tree, prefix=""):
+    """A nested dict of NamedShardings -> {key path: sharding}."""
+    if isinstance(tree, dict):
+        return {p: s for k, v in tree.items() for p, s in _shardings(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def test_elastic_restore_different_mesh(tmp_path):
+    """Save on one topology, restore onto another (8 -> 4 ranks)."""
+    r = subprocess.run([sys.executable, "-c", _JAX_PLANS],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    jplans = json.loads(r.stdout.split("PLANS", 1)[1])
+    cfg = get_config("granite-3-2b", smoke=True)
+    defs = lm.param_defs(cfg)
+    plans = {n: elastic_restore_plan(defs, DEFAULT_RULES, make_test_mesh(devices=n))
+             for n in (8, 4)}
+    for n, plan in plans.items():
+        want = jplans[str(n)]
+        assert (plan["dp_degree"], plan["devices"]) == (want["dp_degree"], want["devices"])
+        assert {p: str(s.spec) for p, s in _shardings(plan["shardings"]).items()} == \
+            want["specs"]
+
+    def model_of(seed):
+        model = init_params(lm.LM(cfg, device="cpu"), torch.Generator().manual_seed(seed))
+        return model, train_state_tree(model, adamw_init(model))["params"]
+
+    source, source_tree = model_of(0)
+    ck = BlobCheckpointer(FileStore(str(tmp_path / "e")), async_upload=False)
+    ck.save(1, source_tree)
+    on8, on8_tree = model_of(1)          # the model placed on the 8-rank mesh
+    ck.restore(1, on8_tree, shardings=plans[8]["shardings"])
+    ck.save(3, on8_tree)
+    on4, on4_tree = model_of(2)          # a different topology
+    restored = ck.restore(3, on4_tree, shardings=plans[4]["shardings"])
+    assert restored is not None and sorted(restored) == sorted(source_tree)
+    for (name, a), (_, b) in zip(on4.named_parameters(), source.named_parameters()):
+        assert_same_bits(a.detach(), b.detach())
+    assert {s.mesh.size for s in _shardings(plans[4]["shardings"]).values()} == {4}
+
+
 def test_hedged_fetch_improves_heavy_tail():
     """Hedging pays off under degraded-store incidents (heavy tail σ=0.8),
     on the port's copy of the JAX package's module."""
@@ -240,7 +316,6 @@ def test_launcher_commits_manifests_jax_restores(tmp_path):
     # the port reads the same manifest back into the model it trains
     model = lm.LM(get_config(arch, smoke=True), device="cpu")
     opt = adamw_init(model)
-    from repro_torch.interop import train_state_tree
     BlobCheckpointer(FileStore(str(ckpt_dir))).restore(4, train_state_tree(model, opt))
     for a, b in zip(jax.tree.leaves(train_state_to_jax(model, opt)), jax.tree.leaves(out)):
         assert_same_bits(a, np.asarray(b))
