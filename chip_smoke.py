@@ -25,6 +25,14 @@
    faults') stats, the wall seconds on the host's clock and a
    ``stable_hash64`` digest of the delivered records (a report, not a
    gate; the JAX package's digest of the same run is in ``PERF.md``).
+   Then ``gpipe``: ``repro_torch.distributed.gpipe_apply`` over the 4
+   stages of ``StackedMesh(pod=4)`` (``GPIPE_MESH``), f32 stages
+   ``tanh(x @ w + b)`` of width 2,048 on a batch of 8,192 in 8
+   microbatches, against the sequential stack: y within ``GPIPE_TOL``
+   (atol and rtol), the gradients of ``w`` and ``b`` within
+   ``GPIPE_GRAD_TOL`` relative Frobenius; no kernel of the port
+   launched. Prints the worst difference, the gradients' errors and both
+   wall times (one card runs the stages in turn: a report, no speedup).
 4. Blob data plane: holds each blob kernel against its plain PyTorch
    version on the card, bit for bit, over payload dtypes, overflow,
    empty bins, ragged tiles and two rows-per-block values; then runs the
@@ -33,8 +41,16 @@
    over 216 partitions (``SimConfig``: 12 nodes x 2 instances x
    partitions_factor 9). The plain round trip must return every record
    bit for bit, the codec round trip must equal its plain version bit for
-   bit and lie within half a quantization step of each record. Its
-   tensors are freed before the model loads.
+   bit and lie within half a quantization step of each record. Then
+   ``deployment_host_paths``: the same records and keys copied to the
+   host through the host fast paths, ``blob_pack_fused_host`` and
+   ``compress_pack_fused_host``, once into a fresh output and
+   ``HOST_RUNS`` times into a reused arena, each output bit for bit the
+   CUDA kernel's of this run and its (order, starts, counts) the card's;
+   prints the cold and best reused seconds and GB/s of the logical input
+   beside the kernels' times, the host's cores and torch's threads. Its
+   tensors, on the card and on the host, are freed before the model
+   loads.
 5. Model kernels: flash attention against its plain version at head dims
    64, 80, 128 and 256, GQA, MQA, non-causal and ragged, in bf16 and f32
    (bf16 also at 16, 48 and 96, and 144, 176 and 192: the kinds of tail
@@ -266,8 +282,9 @@
    clock), the host memory around each, the peak device memory (of the
    path, and with the checks' temporaries over the two logits) and the
    launches; then deletes the store, whose host memory must come back.
-15. Prints one ``kernels`` line: per kernel its launches on its main path
-   (the round trip, or one prefill), its median time over repeated runs
+15. Prints the script's seconds (``script``), then one ``kernels`` line:
+   per kernel its launches on its main path (the round trip, or one
+   prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
    the bound they set (3.35 TB/s; 989 TFLOP/s bf16), the plain version's
    time, and one PyTorch call that computes the same function as
@@ -441,6 +458,18 @@ RESUME_CRASH_AT = 8
 # deepseek_v2_lite_elastic): the 3 layers' parameters saved under
 # EP_MESH's plan (32 stacked ranks) and restored under this mesh's (16)
 ELASTIC_MESH = {"pod": 1, "data": 4, "model": 4}
+# GPipe on one card (phase gpipe): f32 stages tanh(x @ w + b) of width
+# GPIPE_WIDTH over the stacked pod axis, against the sequential stack with
+# tests/test_pipeline_parallel.py's bounds; gradients by relative Frobenius
+GPIPE_MESH = {"pod": 4}
+GPIPE_WIDTH = 2048
+GPIPE_BATCH = 8192
+GPIPE_MICRO = 8
+GPIPE_TOL = 1e-5              # atol and rtol
+GPIPE_GRAD_TOL = 1e-4
+# the host fast paths' reused-arena calls (phase deployment_host_paths):
+# best of this many, as the JAX package's benchmarks/micro.py times them
+HOST_RUNS = 3
 # what an earlier phase hands a later one
 RESULTS = {}
 # the gradient sync against the plain mean of two pods' gradients: exact
@@ -500,15 +529,9 @@ def engine(seed: int, smi: str) -> None:
     on exactly-once delivery inside ``repro_torch.launch.engine``; the
     kernels' launch counts, set to 0 before, must still be 0 after, and
     the phase must load no module of ``jax`` or of the JAX package."""
-    from repro_torch.kernels.blob_codec import kernel as codec_kernel
-    from repro_torch.kernels.blob_pack import kernel as pack_kernel
-    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.launch import engine as engine_launch
 
-    kernels = (pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
-               codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, *ssd_kernel.KERNELS)
+    kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     before = set(_foreign_modules())
@@ -533,6 +556,91 @@ def engine(seed: int, smi: str) -> None:
     check(not any(launched.values()), f"the engine launches no kernel: {launched}")
     foreign = sorted(set(_foreign_modules()) - before)
     check(not foreign, f"the engine loads no module of jax or the JAX package: {foreign[:5]}")
+
+
+def all_kernels() -> tuple:
+    """Every kernel of the port, each with its launch count."""
+    from repro_torch.kernels.blob_codec import kernel as codec_kernel
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    return (pack_kernel.PACK, unpack_kernel.UNPACK, codec_kernel.COMPRESS_PACK,
+            codec_kernel.UNPACK_DECOMPRESS, *flash_kernel.KERNELS, *ssd_kernel.KERNELS)
+
+
+def gpipe(seed: int, smi: str) -> None:
+    """Phase ``gpipe`` (step 3 above): ``gpipe_apply`` over
+    ``GPIPE_MESH``'s stages on the card against the sequential stack, its
+    output within ``GPIPE_TOL`` and the gradients of ``w`` and ``b``
+    within ``GPIPE_GRAD_TOL``; plain torch, so no kernel of the port may
+    launch. On one card the stages run in turn: the wall times are a
+    report, not a speedup."""
+    from repro_torch.distributed import gpipe_apply
+    from repro_torch.launch.mesh import stacked_mesh
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    S, d, B = GPIPE_MESH["pod"], GPIPE_WIDTH, GPIPE_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = {"w": torch.randn((S, d, d), generator=gen, device="cuda") / d ** 0.5,
+              "b": torch.randn((S, d), generator=gen, device="cuda") * 0.1}
+    x = torch.randn((B, d), generator=gen, device="cuda")
+    g = torch.randn((B, d), generator=gen, device="cuda")
+    mesh = stacked_mesh(**GPIPE_MESH)
+
+    def stage_fn(p, xm):
+        return torch.tanh(xm @ p["w"] + p["b"])
+
+    def sequential(p, xx):
+        for s in range(S):
+            xx = stage_fn({k: v[s] for k, v in p.items()}, xx)
+        return xx
+
+    def pipelined(p, xx):
+        return gpipe_apply(stage_fn, p, xx, mesh=mesh, n_micro=GPIPE_MICRO)
+
+    def run(fn):
+        """y, the gradients of w and b, forward s, backward s."""
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn(p, x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (y * g).sum().backward()
+        torch.cuda.synchronize()
+        return y.detach(), p["w"].grad, p["b"].grad, t1 - t0, time.perf_counter() - t1
+
+    torch.cuda.reset_peak_memory_stats()
+    times = {"gpipe": [], "sequential": []}
+    for fn in (pipelined, sequential):
+        run(fn)                              # warm-up: cuBLAS handles and plans
+    res = {}
+    for name, fn in [("gpipe", pipelined), ("sequential", sequential),
+                     ("sequential", sequential), ("gpipe", pipelined)]:
+        y, gw, gb, fwd_s, bwd_s = run(fn)
+        res[name] = (y, gw, gb)
+        times[name].append({"forward_s": fwd_s, "backward_s": bwd_s})
+    got, want = res["gpipe"], res["sequential"]
+    worst = max_abs_diff(got[0], want[0])
+    check(torch.allclose(got[0], want[0], atol=GPIPE_TOL, rtol=GPIPE_TOL),
+          f"gpipe's y within {GPIPE_TOL} of the sequential stack (worst {worst})")
+    grads = {"w": rel_fro(got[1], want[1]), "b": rel_fro(got[2], want[2])}
+    check(all(e <= GPIPE_GRAD_TOL for e in grads.values()),
+          f"gpipe's gradients within {GPIPE_GRAD_TOL} relative Frobenius: {grads}")
+    launched = {k.symbol: k.launches for k in kernels}
+    check(not any(launched.values()), f"gpipe launches no kernel of the port: {launched}")
+    emit({"phase": "gpipe", "nvidia_smi": smi, "mesh": GPIPE_MESH, "width": d, "batch": B,
+          "n_micro": GPIPE_MICRO, "dtype": "float32",
+          "stage_fn": "tanh(x @ w + b), w ~ N(0, 1/d), b ~ N(0, 0.01)",
+          "y_max_abs_diff": worst, "y_tol": GPIPE_TOL, "grad_rel_fro": grads,
+          "grad_tol": GPIPE_GRAD_TOL, "seconds": times,
+          "clock": "the host's, synchronised; one card runs the stages in turn, so "
+                   "no speedup is expected",
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": True})
 
 
 def _foreign_modules() -> list:
@@ -796,7 +904,66 @@ def deployment(seed: int) -> list:
     # the timed launches rewrote the outputs; they must still be right
     torch.cuda.synchronize()
     check(same_bits(back, x), "outputs unchanged by the timed launches")
+    deployment_host_paths(x, keys, buf, (order, starts, counts), (q, scales), cap,
+                          {r["name"]: r for r in rows})
     return rows
+
+
+def deployment_host_paths(x, keys, buf, triple, codes, cap: int, kernel_rows: dict) -> None:
+    """Phase ``deployment_host_paths`` (step 4 above): the Batcher's host
+    fast paths on the deployment's records, copied to the host, against
+    the CUDA kernels' outputs of the same run, bit for bit. Each path runs
+    once into a fresh output (``cold_s``), then ``HOST_RUNS`` times into
+    that output as a reused arena, first filled with 0xff bytes so that
+    every byte must be written again (``reused_s``, the best). Its host
+    tensors are freed when it returns."""
+    from repro_torch.kernels.blob_codec import compress_pack_fused_host
+    from repro_torch.kernels.blob_pack.ops import blob_pack_fused_host
+
+    host_gb = [host_available_gb()]
+    x_h, keys_h = x.cpu(), keys.cpu()
+    triple_h = tuple(t.cpu() for t in triple)
+    logical = x_h.numel() * x_h.element_size()
+
+    def call(name, fn, want, out):
+        """One call into ``out``, checked; returns its outputs and seconds."""
+        t0 = time.perf_counter()
+        got, got_triple = fn(x_h, keys_h, num_bins=PARTITIONS, capacity=cap, out=out)
+        seconds = time.perf_counter() - t0
+        host_gb.append(host_available_gb())
+        got = got if isinstance(got, tuple) else (got,)
+        check(all(same_bits(a, b) for a, b in zip(got, want)),
+              f"{name} == the CUDA kernel's output bit for bit")
+        check(all(torch.equal(a, b) for a, b in zip(got_triple, triple_h)),
+              f"{name}'s (order, starts, counts) == the card's")
+        return got, seconds
+
+    line = {}
+    for name, fn, kernel, device_out in [
+            ("blob_pack_fused_host", blob_pack_fused_host, "pack", (buf,)),
+            ("compress_pack_fused_host", compress_pack_fused_host, "compress_pack", codes)]:
+        want = tuple(t.cpu() for t in device_out)
+        arena, cold_s = call(name, fn, want, None)
+        runs = []
+        for _ in range(HOST_RUNS):
+            for t in arena:
+                t.view(torch.uint8).fill_(0xFF)
+            got, seconds = call(name, fn, want, arena if len(arena) > 1 else arena[0])
+            check(all(a is b for a, b in zip(got, arena)), f"{name} returns its arena")
+            runs.append(seconds)
+        line[name] = {"cold_s": cold_s, "reused_s": min(runs), "reused_runs_s": runs,
+                      "cold_gb_s": logical / cold_s / 1e9,
+                      "reused_gb_s": logical / min(runs) / 1e9,
+                      "kernel": kernel, "kernel_ms": kernel_rows[kernel]["ms"],
+                      "kernel_plain_ms": kernel_rows[kernel]["plain_ms"]}
+        del want, arena, got
+    emit({"phase": "deployment_host_paths", "records": x_h.shape[0], "width": x_h.shape[1],
+          "dtype": "bfloat16", "partitions": PARTITIONS, "capacity": cap,
+          "logical_input_bytes": logical, "bitwise_vs_cuda_kernels": True,
+          "cpu_count": os.cpu_count(), "torch_threads": torch.get_num_threads(),
+          "host_available_gb": {"start": host_gb[0], "least_after_a_call": min(host_gb)},
+          "clock": "the host's; kernel_ms the kernels' CUDA-event medians of this run",
+          **line, "ok": True})
 
 
 # (B, S, H, KVH, D, causal, dtype): head dims 64, 80 (Zamba2), 128 and 256
@@ -3336,6 +3503,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.blob_pack.kernel import ROWS_PER_BLOCK
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     print(smi, flush=True)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -3349,6 +3517,7 @@ def main(argv=None) -> int:
           "libraries": [str(p.relative_to(ROOT)) for p in libraries.values()]})
 
     engine(args.seed, smi)
+    gpipe(args.seed, smi)
     kernel_phases(args.seed, (ROWS_PER_BLOCK, 128))
     rows = deployment(args.seed)
     torch.cuda.empty_cache()     # the deployment's tensors went with it
@@ -3369,6 +3538,7 @@ def main(argv=None) -> int:
     deepseek_v2_lite_shuffle_resume(args.seed, smi)
     deepseek_v2_lite_restart(args.seed, smi)
     deepseek_v2_lite_elastic(args.seed, smi)
+    emit({"phase": "script", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -24,15 +24,29 @@ from repro_torch.shuffle.compression import int8_dequantize
 _INV_127 = 1.0 / 127.0
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, *, out=None,
+                  scratch=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization over the last axis (any leading
-    shape): (q int8, scale float32)."""
-    x32 = x.to(torch.float32)
-    absmax = torch.amax(torch.abs(x32), dim=-1)
+    shape): (q int8, scale float32).
+
+    ``out=(q, scale)`` takes the results, ``scratch`` (f32, ``(2,
+    *x.shape)``) the two temporaries; a caller that quantizes chunk after
+    chunk passes the same buffers each time, so that no chunk allocates
+    (and page-faults) its own."""
+    if scratch is None:
+        scratch = x.new_empty((2, *x.shape), dtype=torch.float32)
+    x32, tmp = scratch[0], scratch[1]
+    x32.copy_(x)
+    absmax = torch.amax(torch.abs(x32, out=tmp), dim=-1)
     scale = torch.where(absmax > 0, absmax * absmax.new_tensor(_INV_127),
                         torch.ones_like(absmax))
-    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
-    return q.to(torch.int8), scale
+    torch.div(x32, scale[..., None], out=tmp)
+    torch.clamp(torch.round(tmp, out=tmp), -127, 127, out=tmp)
+    if out is None:
+        return tmp.to(torch.int8), scale
+    out[0].copy_(tmp)
+    out[1].copy_(scale)
+    return out
 
 
 def compress_pack_ref(x: torch.Tensor, order: torch.Tensor,

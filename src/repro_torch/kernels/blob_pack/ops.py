@@ -4,6 +4,8 @@ Each op runs where its tensors lie: CUDA tensors go through the kernel
 (``kernel.blob_pack_fused_cuda``), CPU tensors through the plain version
 (``ref.blob_pack_ref``). ``pack_from_keys`` and ``blob_pack_fused`` add
 the sort front half (``repro_torch.shuffle.binning.sorted_order``).
+``blob_pack_fused_host`` (``host.py``) is the explicit entry point for
+rows on the host; it takes CPU tensors only, and no op falls back to it.
 
 ``blob_pack`` is differentiable in ``x``. Its adjoint is an unpack: the
 incoming (bins, capacity, d) gradient is read back into the sorted
@@ -21,11 +23,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._checks import check_pack
+from repro_torch.kernels.blob_pack.host import (blob_pack_fused_host,
+                                                sorted_order_np)
 from repro_torch.kernels.blob_pack.kernel import blob_pack_fused_cuda
 from repro_torch.kernels.blob_pack.ref import blob_pack_ref
 from repro_torch.shuffle.binning import sorted_order
 
-__all__ = ["blob_pack", "pack_from_keys", "blob_pack_fused"]
+__all__ = ["blob_pack", "pack_from_keys", "blob_pack_fused",
+           "blob_pack_fused_host", "sorted_order_np"]
 
 
 def pack_rows(x: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,

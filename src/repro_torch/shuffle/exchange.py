@@ -22,6 +22,14 @@ rank-major over the mesh's axes, and offer:
                         (ranks, n, ...), entry j the x of the rank whose
                         coordinates along ``axes`` have linear index j
                         and whose other coordinates are this rank's
+  ppermute(x, axis)     ``lax.ppermute(x, axis, perm)`` with the one-hop
+                        ring ``perm = [(i, (i + 1) % n)]``: each rank's x
+                        goes to the rank one further along ``axis``
+                        (the last to the first), other coordinates kept
+  refuse_grad_together(name, axes, *tensors)
+                        refuse a call whose tensors require grad in any
+                        rank that differs only along ``axes``, in all of
+                        them alike (the process-group back end only)
 
 ``Stacked`` (a ``StackedMesh``, every rank in this process) moves tensors
 by transposing rank axes; ``ProcessGroups`` (a ``ProcessGroupMesh``, one
@@ -157,12 +165,24 @@ class Stacked(_Exchange):
         return v.expand(*self.mesh.sizes, *v.shape[n:]).reshape(
             self.ranks, -1, *x.shape[1:])
 
+    def ppermute(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        self.axis_size((axis,))
+        v = x.reshape(*self.mesh.sizes, *x.shape[1:])
+        return torch.roll(v, 1, dims=self.mesh.axis_names.index(axis)).reshape(x.shape)
 
-def _no_grad(name: str, *tensors: torch.Tensor) -> None:
+    def refuse_grad_together(self, name: str, axes, *tensors: torch.Tensor) -> None:
+        """Nothing to refuse: the stacked back end differentiates."""
+
+
+def _grad_refusal(name: str) -> ValueError:
+    return ValueError(f"the process-group {name} does not differentiate: "
+                      f"autograd does not see torch.distributed; run the "
+                      f"backward pass over a StackedMesh")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(f"the process-group {name} does not differentiate: "
-                         f"autograd does not see torch.distributed; run the "
-                         f"backward pass over a StackedMesh")
+        raise _grad_refusal(name)
 
 
 class ProcessGroups(_Exchange):
@@ -198,7 +218,7 @@ class ProcessGroups(_Exchange):
 
         axes = tuple(axes)
         self._check_split(x, axes)
-        _no_grad("all_to_all", x)
+        refuse_grad("all_to_all", x)
         key = self._in_mesh_order(axes)
         send = self._reorder(x[0], axes, key).contiguous()
         recv = torch.empty_like(send)
@@ -210,7 +230,7 @@ class ProcessGroups(_Exchange):
 
         if not tuple(axes):
             return x
-        _no_grad("psum", x)
+        refuse_grad("psum", x)
         out = x.clone()
         dist.all_reduce(out, group=self._group(axes))
         return out
@@ -240,8 +260,49 @@ class ProcessGroups(_Exchange):
         import torch.distributed as dist
 
         axes = tuple(axes)
-        _no_grad("all_gather", x)
+        refuse_grad("all_gather", x)
         key = self._in_mesh_order(axes)
         parts = [torch.empty_like(x[0]) for _ in range(self.axis_size(axes))]
         dist.all_gather(parts, x[0].contiguous(), group=self._group(axes))
         return self._reorder(torch.stack(parts), key, axes)[None]
+
+    def ppermute(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sends to the next rank along ``axis`` and receives from the one
+        before, posted as one batch before either is waited on (a blocking
+        send around the ring would deadlock, and NCCL needs the pair in one
+        group); peers are the global ranks of this process's coordinates
+        with ``axis`` moved one step."""
+        import torch.distributed as dist
+
+        n = self.axis_size((axis,))
+        refuse_grad("ppermute", x)
+        if n == 1:
+            return x
+        coords = self.coords
+        at = [coords[a] for a in self.mesh.axis_names]
+        i = self.mesh.axis_names.index(axis)
+
+        def peer(step: int) -> int:
+            return int(np.ravel_multi_index(at[:i] + [(at[i] + step) % n] + at[i + 1:],
+                                            self.mesh.sizes))
+
+        send = x[0].contiguous()
+        recv = torch.empty_like(send)
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, peer(1)),
+                                           dist.P2POp(dist.irecv, recv, peer(-1))]):
+            req.wait()
+        return recv[None]
+
+    def refuse_grad_together(self, name: str, axes, *tensors: torch.Tensor) -> None:
+        """``refuse_grad`` agreed over the group of ``axes``: one flag,
+        "a tensor here requires grad", is max-reduced over the group, so
+        every process of it raises alike. A process that raised alone
+        would leave its peers waiting on it in their next collective."""
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(torch.is_grad_enabled()
+                                 and any(t.requires_grad for t in tensors))],
+                            device=tensors[0].device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group(axes))
+        if flag.item():
+            raise _grad_refusal(f"{name} (in some process along {tuple(axes)})")

@@ -1,0 +1,22 @@
+"""The port's file list against the JAX package's: every ``.py`` file of
+``src/repro`` has a twin at the same path under ``src/repro_torch`` but
+for the named four, which ROADMAP.md lists as the files with no twin."""
+
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+#: the JAX package's deprecated ``repro.core.store`` import shim (not
+#: copied), its JAX version shims (no twin needed), and the dryrun and
+#: its HLO analysis (XLA HLO has no torch twin; ROADMAP queue 1)
+NO_TWIN = {"core/store.py", "jaxcompat.py", "launch/dryrun.py",
+           "launch/hlo_analysis.py"}
+
+
+def _files(package: str) -> set:
+    base = ROOT / "src" / package
+    return {p.relative_to(base).as_posix() for p in base.rglob("*.py")}
+
+
+def test_every_file_of_the_jax_package_has_a_twin_but_the_named_four():
+    assert _files("repro") - _files("repro_torch") == NO_TWIN
