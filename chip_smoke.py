@@ -190,6 +190,22 @@
    those at the timed shape (``launches_at_timed_shape``: the forward's
    and the recompute's, 8; unpack's 12 also count pack's backward, an
    unpack of the same shape; unpack's backward is a pack at another).
+   (d) The ``auto`` step with expert parallelism, 3 steps: the shuffle
+   ``blob`` at the config's capacity factor over ``EP_MESH``'s 32
+   stacked ranks, the stacked twin of the step over a
+   ``ProcessGroupMesh`` (NCCL refuses two ranks on one card, so no
+   process group of more than one rank runs here): finite losses and
+   gradient norms, every MoE call over the mesh with ``dcn_bytes`` above
+   0, 12 flash, 52 pack and 36 unpack launches a step and no other
+   kernel (``TRAIN_EP_*_LAUNCHES``), no module of JAX loaded. Its
+   reference runs last, on the fresh parameters drawn again from the
+   seed: the expert-parallel
+   loss and gradients at a capacity factor of E (no unit dropped)
+   against the dense dispatch's on the first ``TRAIN_EP_REF_TOKENS``
+   tokens, within ``TRAIN_EP_LOSS_TOL`` and ``TRAIN_EP_GRAD_TOL``. Each
+   blob call's drops, from the fresh and the trained parameters, are
+   printed beside the largest expert load over the mean and the units
+   over the last stage's capacity and over the dense layer's.
 11. ``deepseek_v2_lite_shuffle_fed``: BlobShuffle as the training input.
    The same 3 layers trained for 12 steps by ``repro_torch.train_input``'s
    ``train_shuffle_fed``: each step's 4 x 4,096 tokens (4 records of
@@ -324,6 +340,7 @@ the script exits non-zero before it prints any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import hashlib
 import json
@@ -429,6 +446,24 @@ TRAIN_MICROBATCHES = 2
 # backward
 TRAIN_FLASH_LAUNCHES = TRAIN_LAYERS * TRAIN_MICROBATCHES * 2
 TRAIN_PACK_LAUNCHES = (TRAIN_LAYERS - 1) * TRAIN_MICROBATCHES * 3
+# the auto step's reference: its loss and gradients at a capacity factor
+# of E against the dense dispatch's, on the first 2,048 tokens of the
+# batch's first row (at E the stage-1 buffers take 0.8 MB a token). With
+# nothing dropped each expert sees the same rows in both; the sums over
+# units and ranks run in another order: the loss by its relative error,
+# the gradients by the relative Frobenius error over all parameters
+TRAIN_EP_REF_TOKENS = 2048
+TRAIN_EP_LOSS_TOL = 1e-4
+TRAIN_EP_GRAD_TOL = 1e-3
+# the auto step with the blob shuffle over EP_MESH's stacked ranks, a MoE
+# layer and microbatch: blob's packs and unpacks (EP_LAUNCHES) in the
+# forward and again in the recompute, and the backward's: an unpack for
+# each of the three payload packs, a pack for each of the three unpacks
+# (the metadata packs carry no gradient)
+TRAIN_EP_PACK_LAUNCHES = (TRAIN_LAYERS - 1) * TRAIN_MICROBATCHES * (
+    2 * EP_LAUNCHES["blob"][0] + 3)
+TRAIN_EP_UNPACK_LAUNCHES = (TRAIN_LAYERS - 1) * TRAIN_MICROBATCHES * (
+    2 * EP_LAUNCHES["blob"][1] + 3)
 # deepseek-v2-lite fed by BlobShuffle (phase deepseek_v2_lite_shuffle_fed):
 # the training benchmark's --quick step count, engine, mesh, shuffle and
 # sync (benchmarks/train_input.py); (c)'s microbatches, remat and bf16;
@@ -2350,12 +2385,15 @@ def kernel_grads(seed: int) -> list:
     return [ssd_row]
 
 
-def deepseek_v2_lite_train(seed: int) -> list:
+def deepseek_v2_lite_train(seed: int, smi: str) -> list:
     """deepseek-v2-lite-16b at published widths with 3 of its 27 layers
     trained on the card: (a) the plain step, (b) the blob gradient sync
     against the plain mean of two pods' gradients, (c) BlobShuffle's
-    training configuration; returns the kernels rows of the training
-    path."""
+    training configuration, (d) the ``auto`` step with its MoE layers
+    dispatched over ``EP_MESH``'s stacked ranks: the stacked twin of the
+    step over a ``ProcessGroupMesh``, which one card cannot run (NCCL
+    refuses two ranks on one device); returns the kernels rows of the
+    training path."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2388,6 +2426,7 @@ def deepseek_v2_lite_train(seed: int) -> list:
     n_moe = cfg.num_layers - m.first_dense_layers
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(lm.LM(cfg, device="cuda"), gen)
+    fresh_router = params.blocks[1].ffn.router.detach().clone()
     n_params = sum(p.numel() for p in params.parameters())
     check(n_params == cfg.param_count(), f"{n_params} parameters")
     B, S = DECODER_PREFILL_BATCH, PREFILL_LEN
@@ -2437,6 +2476,47 @@ def deepseek_v2_lite_train(seed: int) -> list:
                               "peak_memory_gb": peak,
                               "launches_per_step": {s_: c // n for s_, c in launches.items() if c}}
 
+    diags, meshes = [], []
+    original = moe_module.moe_apply
+
+    def moe_recording(cfg_, p, x, **kwargs):
+        # at entry: the recompute stops inside the layer once it has what
+        # the backward needs, so only the forward returns
+        meshes.append(kwargs.get("mesh"))
+        out = original(cfg_, p, x, **kwargs)
+        diags.append(out[2])
+        return out
+
+    @contextlib.contextmanager
+    def recording():
+        diags.clear()
+        meshes.clear()
+        moe_module.moe_apply = moe_recording
+        try:
+            yield
+        finally:
+            moe_module.moe_apply = original
+
+    mesh = stacked_mesh(**EP_MESH)
+    E, R = m.num_experts, mesh.size
+    ep_blob = api.ShuffleConfig(mode="blob", capacity_factor=m.capacity_factor)
+
+    def drop_causes(dg, units: int) -> dict:
+        """A blob call's drops beside its loads: the largest expert's load
+        over the mean, and the units over the capacity of each expert in
+        the dispatch's last stage (pooled over the ranks, so its slack is
+        the factor's over sqrt(32)) and over the dense layer's."""
+        load = dg["expert_load"].double()
+        cap_e = dispatch._cap(units / R / (E // R),
+                              dispatch.pooled_capacity_factor(m.capacity_factor, R))
+        cap_d = dispatch._cap(units / E, m.capacity_factor)
+        return {"dropped": int(dg["dropped"]), "units": units,
+                "max_load_over_mean": float(load.max()) * E / units,
+                "expert_capacity": cap_e,
+                "over_expert_capacity": int((load - cap_e).clamp(min=0).sum()),
+                "dense_capacity": cap_d,
+                "over_dense_capacity": int((load - cap_d).clamp(min=0).sum())}
+
     # (a) the plain step: dense dispatch, no mesh
     per_step = {flash.symbol: TRAIN_FLASH_LAUNCHES, pack_kernel.PACK.symbol: TRAIN_PACK_LAUNCHES,
                 unpack_kernel.UNPACK.symbol: TRAIN_PACK_LAUNCHES}
@@ -2478,7 +2558,6 @@ def deepseek_v2_lite_train(seed: int) -> list:
     # (b) the gradient sync at full width: each pod's gradients for its
     # half of the batch (dense dispatch), exact and int8 against the plain
     # mean of the two
-    mesh = stacked_mesh(**EP_MESH)
     loss_fn = make_loss_fn(cfg, TrainConfig(remat="full", shuffle=dense))
     stacked = None
     for p_idx, half in enumerate(_split_micro(batch, EP_MESH["pod"])):
@@ -2521,30 +2600,15 @@ def deepseek_v2_lite_train(seed: int) -> list:
     # (c) BlobShuffle's training configuration: the int8 gradient sync,
     # the shuffle blob made pod-local; as in the JAX package, the pod
     # region's loss gets no mesh, so its MoE layers take the dense dispatch
-    diags, meshes = [], []
-    original = moe_module.moe_apply
-
-    def moe_recording(cfg_, p, x, **kwargs):
-        # at entry: the recompute stops inside the layer once it has what
-        # the backward needs, so only the forward returns
-        meshes.append(kwargs.get("mesh"))
-        out = original(cfg_, p, x, **kwargs)
-        diags.append(out[2])
-        return out
-
     pods = EP_MESH["pod"]
     per_step = {flash.symbol: pods * TRAIN_FLASH_LAUNCHES,
                 pack_kernel.PACK.symbol: pods * TRAIN_PACK_LAUNCHES,
                 unpack_kernel.UNPACK.symbol: pods * TRAIN_PACK_LAUNCHES}
     step = make_train_step(cfg, TrainConfig(
         opt=opt_cfg, microbatches=TRAIN_MICROBATCHES, remat="full",
-        shuffle=api.ShuffleConfig(mode="blob", capacity_factor=m.capacity_factor),
-        grad_sync="blob_int8"), mesh=mesh)
-    moe_module.moe_apply = moe_recording
-    try:
+        shuffle=ep_blob, grad_sync="blob_int8"), mesh=mesh)
+    with recording():
         opt, metrics, blob = run_steps(step, adamw_init(params), TRAIN_BLOB_STEPS, per_step)
-    finally:
-        moe_module.moe_apply = original
     # every MoE call (forward and recompute, per pod and microbatch)
     dcn = sorted({float(dg["dcn_bytes"]) for dg in diags})
     blob.update(grad_sync_pod_bytes=float(metrics["grad_sync_bytes"]),
@@ -2554,6 +2618,36 @@ def deepseek_v2_lite_train(seed: int) -> list:
           f"every MoE call of the pod region without a mesh: {len(meshes)} calls")
     check(dcn == [0.0], f"pod-local MoE layers send nothing across pods: {dcn}")
     result["blob_int8"] = blob
+    del opt
+
+    # (d) the auto step with expert parallelism: the loss gets the mesh,
+    # so every MoE call dispatches over the 32 stacked ranks, and the
+    # backward runs through the stacked exchange (the twin of the
+    # process-group step, whose processes run one rank each)
+    per_step = {flash.symbol: TRAIN_FLASH_LAUNCHES,
+                pack_kernel.PACK.symbol: TRAIN_EP_PACK_LAUNCHES,
+                unpack_kernel.UNPACK.symbol: TRAIN_EP_UNPACK_LAUNCHES}
+    step = make_train_step(cfg, TrainConfig(
+        opt=opt_cfg, microbatches=TRAIN_MICROBATCHES, remat="full", shuffle=ep_blob,
+        grad_sync="auto"), mesh=mesh)
+    with recording():
+        opt, metrics, auto_ep = run_steps(step, adamw_init(params), TRAIN_BLOB_STEPS, per_step)
+    dcn = sorted({float(dg["dcn_bytes"]) for dg in diags})
+    units = B * S // TRAIN_MICROBATCHES * m.top_k
+    auto_ep.update(mesh=EP_MESH, moe_dispatch="blob", moe_calls=len(meshes),
+                   moe_forward_calls=len(diags), moe_dcn_bytes=dcn,
+                   dropped_per_call=[int(dg["dropped"]) for dg in diags], units_per_call=units,
+                   drops_trained=[drop_causes(dg, units) for dg in diags],
+                   aux_loss=float(metrics["aux_loss"]), nvidia_smi=smi,
+                   why_stacked="NCCL refuses two ranks on one device, so one card runs "
+                               "no process group of more than one rank")
+    check(len(meshes) == TRAIN_BLOB_STEPS * TRAIN_MICROBATCHES * 2 * n_moe
+          and all(ms is mesh for ms in meshes),
+          f"every MoE call of the auto step over the mesh: {len(meshes)} calls")
+    check(bool(dcn) and min(dcn) > 0, f"every MoE call sends across pods: {dcn}")
+    foreign = _foreign_modules()
+    check(not foreign, f"no module of JAX loaded: {foreign[:5]}")
+    result["auto_ep"] = auto_ep
     del opt
 
     # the kernels at the training shape: one microbatch of 2 x 4,096 tokens
@@ -2581,6 +2675,7 @@ def deepseek_v2_lite_train(seed: int) -> list:
         "shape": [mb, S, Hh, Hh, Dq], "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
         "launches": plain["launches_per_step"][flash.symbol],
+        "launches_auto_ep": auto_ep["launches_per_step"][flash.symbol],
         "max_abs_err": cmp["max_abs_err"], "ms": flash_ms,
         "plain_ms": time_ms(lambda: flash_ref(q, kk, v, causal=True), 3, warmup=1),
         "bound_ms": fb, "bound_by": fby, "library_ms": time_ms(sdpa, TIMED_RUNS),
@@ -2638,6 +2733,7 @@ def deepseek_v2_lite_train(seed: int) -> list:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(library, TIMED_RUNS), "library_call": "torch.index_select",
             "bytes": nbytes})
+        train_rows[-1]["launches_auto_ep"] = auto_ep["launches_per_step"][kern.symbol]
         check(train_rows[-1]["launches_at_timed_shape"]
               == timed_keys[name][1] * n_moe * TRAIN_MICROBATCHES,
               f"{name}: {timed_keys[name][1]} launches a MoE layer and microbatch at the "
@@ -2645,9 +2741,63 @@ def deepseek_v2_lite_train(seed: int) -> list:
     result["flash_backward"]["share_note"] = (
         "the plain backward's time at the training shape, times its calls a "
         "step, over the median plain step")
+    # (d)'s references, on the fresh parameters drawn again from the seed
+    # (the trained ones go): the drops of one microbatch's forward through
+    # the blob dispatch at the config's capacity, and the loss and
+    # gradients of the expert-parallel loss at a capacity factor of E,
+    # where no unit drops, against the dense dispatch's (nothing drops
+    # there at E either) on the first TRAIN_EP_REF_TOKENS tokens (the
+    # buffers grow with the factor)
+    del x, buf, y
+    params = init_params(lm.LM(cfg, device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(seed))
+    check(torch.equal(params.blocks[1].ffn.router, fresh_router),
+          "the parameters drawn again are the fresh ones")
+    torch.cuda.empty_cache()
+    mb0 = _split_micro(batch, TRAIN_MICROBATCHES)[0]
+    with torch.no_grad(), recording():
+        make_loss_fn(cfg, TrainConfig(remat="full", shuffle=ep_blob), mesh=mesh)(params, mb0)
+    fresh_drops = [drop_causes(dg, mb0["tokens"].numel() * m.top_k) for dg in diags]
+    cfg_e = dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=float(E)))
+    ref_batch = {n: t[:1, :TRAIN_EP_REF_TOKENS].contiguous() for n, t in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    ref = {}
+    for name, shuf, on in (("dense", api.ShuffleConfig(mode="dense"), None),
+                           ("blob", api.ShuffleConfig(mode="blob", capacity_factor=float(E)),
+                            mesh)):
+        loss_fn = make_loss_fn(cfg_e, TrainConfig(remat="full", shuffle=shuf), mesh=on)
+        with recording():
+            grads, ref_m = _grads(loss_fn, params, ref_batch, 1)
+        ref[name] = (grads, {k: float(v) for k, v in ref_m.items()},
+                     [int(dg["dropped"]) for dg in diags])
+        del grads
+    (gd, dense_m, _), (gb, blob_m, dropped_e) = ref["dense"], ref["blob"]
+    sq = {n: (float(((gb[n] - g) ** 2).sum()), float((g ** 2).sum()), float((gb[n] ** 2).sum()))
+          for n, g in gd.items()}
+    rel = {n: (a / b) ** 0.5 for n, (a, b, _) in sq.items() if b > 0}
+    ep_ref = {"tokens": TRAIN_EP_REF_TOKENS, "capacity_factor": float(E),
+              "dropped_per_call": dropped_e, "loss": blob_m["loss"], "dense_loss": dense_m["loss"],
+              "aux_loss": blob_m["aux_loss"], "dense_aux_loss": dense_m["aux_loss"],
+              "loss_rel_err": abs(blob_m["loss"] - dense_m["loss"]) / abs(dense_m["loss"]),
+              "grad_norm": sum(c for _, _, c in sq.values()) ** 0.5,
+              "dense_grad_norm": sum(b for _, b, _ in sq.values()) ** 0.5,
+              "grad_rel_err": (sum(a for a, _, _ in sq.values())
+                               / sum(b for _, b, _ in sq.values())) ** 0.5,
+              "worst_param": max(rel, key=rel.get), "worst_param_rel_err": max(rel.values()),
+              "loss_tolerance": TRAIN_EP_LOSS_TOL, "grad_tolerance": TRAIN_EP_GRAD_TOL,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del ref, gd, gb
+    check(len(dropped_e) == n_moe and not any(dropped_e),
+          f"the blob dispatch at a capacity factor of E drops nothing: {dropped_e}")
+    check(ep_ref["loss_rel_err"] <= TRAIN_EP_LOSS_TOL,
+          f"the EP loss {blob_m['loss']} vs the dense dispatch's {dense_m['loss']}")
+    check(ep_ref["grad_rel_err"] <= TRAIN_EP_GRAD_TOL,
+          f"the EP gradients vs the dense dispatch's: {ep_ref['grad_rel_err']} rel. Frobenius "
+          f"(worst {ep_ref['worst_param']}: {ep_ref['worst_param_rel_err']})")
+    auto_ep.update(drops_fresh=fresh_drops, reference=ep_ref)
     emit({**result, "ok": True})
     emit(profile)
-    del x, buf, y, params, batch, rows
+    del params, batch, rows
     return train_rows
 
 
@@ -3533,7 +3683,7 @@ def main(argv=None) -> int:
     for arch, phase, row, layers in NEW_SERVE_PHASES:
         rows += decoder_serve(args.seed, arch, phase, row, layers)
     rows += kernel_grads(args.seed)
-    rows += deepseek_v2_lite_train(args.seed)
+    rows += deepseek_v2_lite_train(args.seed, smi)
     deepseek_v2_lite_shuffle_fed(args.seed, smi)
     deepseek_v2_lite_shuffle_resume(args.seed, smi)
     deepseek_v2_lite_restart(args.seed, smi)

@@ -33,8 +33,8 @@ the card. The elastic restore (``shardings=``, a tree of
 distinct axes of the sharding's mesh, and each sharded dim divisible by
 its axes' product. On a ``StackedMesh`` every rank lives in this process
 and the port's model holds global parameters, so each leaf is written
-whole. A ``ProcessGroupMesh``, one block a process, is refused: it waits
-for the process-group train step (``ROADMAP.md`` queue 1 item 6).
+whole. A ``ProcessGroupMesh``, one block a process, is refused: that
+restore is not ported (``ROADMAP.md`` queue 1 item 6).
 
 The checkpointer is store-agnostic: ``FileStore`` here for real
 filesystems, ``repro_torch.checkpoint.tiered.TieredCheckpointStore`` to
@@ -242,7 +242,7 @@ def _check_shardings(like_spec, leaves: list, shardings) -> None:
         if isinstance(sh.mesh, ProcessGroupMesh):
             raise ValueError(
                 f"leaf {i}: a restore onto a ProcessGroupMesh (one block a process) "
-                f"waits for the process-group train step (ROADMAP.md queue 1 item 6)")
+                f"is not ported (ROADMAP.md queue 1 item 6)")
         if not isinstance(sh.mesh, StackedMesh):
             raise ValueError(f"leaf {i}: a NamedSharding over a StackedMesh, not "
                              f"{type(sh.mesh).__name__}")

@@ -18,9 +18,9 @@ in this process, each once (a replica would compute the same), one
 stage's microbatch at a time: the calls a ``ProcessGroupMesh`` process
 makes, so the two back ends agree bit for bit. The stacked schedule is
 plain tensor algebra, so autograd differentiates through it. On a
-``ProcessGroupMesh`` each process runs its own stage, whose collectives
-do not differentiate: a call that would need them to is refused in every
-process of the stage axis alike.
+``ProcessGroupMesh`` each process runs its own stage, and its hop
+(``exchange.ppermute``) does not differentiate: a call that would need
+it to is refused in every process of the stage axis alike.
 """
 
 from __future__ import annotations

@@ -227,6 +227,9 @@ def ep_moe_ffn(x, w_router, we_gate, we_up, we_down, *, top_k: int,
     x_loc = ex.shard(x, cfg.token_axes)                  # (R, T_loc, d)
     mask_loc = ex.shard(token_mask, cfg.token_axes)      # (R, T_loc)
     R, T_loc, d = x_loc.shape
+    # the router's weight is every rank's (``PartitionSpec()``), so that on
+    # process groups its gradient is summed over the mesh's ranks
+    w_router = ex.shard(w_router, ())[0]
     # every rank's tokens in one product, as the dense path routes them
     sel_w, sel_idx, probs = _route(x_loc.reshape(R * T_loc, d), w_router,
                                    top_k, cfg.norm_topk, num_real=E_real)

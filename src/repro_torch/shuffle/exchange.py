@@ -39,8 +39,47 @@ axes and coordinates of the other axes.
 The stacked back end is plain tensor algebra, so autograd differentiates
 through it (an all-to-all's adjoint is the same all-to-all, a psum's a
 psum). The process-group back end moves bytes with ``torch.distributed``,
-which autograd does not see: its collectives refuse a tensor that
-requires grad rather than cut its gradient off.
+which autograd does not see: so ``all_to_all``, ``psum``, ``shard``,
+``unshard`` and ``all_gather`` run inside an autograd Function, which
+records a backward node only where grad is enabled and an input
+requires it; ``ppermute`` refuses such a tensor (``refuse_grad``).
+
+The Functions' rule: every process computes the same loss, on its own
+copy of what the collectives replicate, and must get the stacked back
+end's gradient of the ranks it holds. So a replicated value is read
+once, as the stacked graph reads it, and each process holds the whole
+cotangent of its copy:
+
+  all_to_all   the same all-to-all (a permutation that is its own
+               inverse)
+  psum         the identity: the output, the same on every rank of the
+               group, is read once per group, so each rank's input gets
+               that one cotangent (a psum of the cotangents would count
+               it once per rank)
+  all_gather   this rank's own entry of the cotangent, read once per
+               group as the psum's
+  unshard      this rank's block of the cotangent where its coordinates
+               along the other axes are 0 (the ranks the stacked version
+               reads), zeros elsewhere
+  shard        the sum over the whole mesh of each rank's block of the
+               cotangent in its place: every process then holds the
+               input's whole gradient, as every rank expands the same
+               global array. It moves as a psum of the block over the
+               other axes, then an all-gather of the blocks over
+               ``axes``.
+
+The rule puts a duty on callers: a replicated tensor that each process
+reads against its own part of the work (a weight applied to its own
+tokens) enters through ``shard(w, ())`` (``ep_moe_ffn`` so passes the
+router's weight), whose adjoint sums its gradient over the mesh. Read
+without it, each process gets only its own share and the processes'
+parameters drift apart; ``make_train_step``'s ``auto`` step checks on
+every step that the processes' gradient norms agree, and raises on all
+of them if not.
+
+Every process enters the same Functions in the same order, so their
+backward collectives line up (a recompute under ``torch.utils.checkpoint``
+issues its forward collectives again, in every process alike).
 """
 
 from __future__ import annotations
@@ -185,6 +224,72 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
         raise _grad_refusal(name)
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ex, axes):
+        ctx.ex, ctx.axes = ex, axes
+        return ex._all_to_all(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ex._all_to_all(g, ctx.axes), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ex, axes):
+        return ex._psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ex, axes):
+        ctx.j = ex._block(axes)
+        return ex._all_gather(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, ctx.j], None, None
+
+
+class _Unshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ex, axes):
+        ctx.n, ctx.b = ex.axis_size(axes), ex._block(axes)
+        ctx.read = all(c == 0 for a, c in ex.coords.items() if a not in axes)
+        out = ex._all_gather(x, axes)[0] if axes else x
+        return out.reshape(-1, *x.shape[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        block = g.reshape(ctx.n, -1, *g.shape[1:])[ctx.b:ctx.b + 1]
+        return (block if ctx.read else torch.zeros_like(block)), None, None
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ex, axes):
+        ctx.ex, ctx.axes = ex, axes
+        n, b = ex.axis_size(axes), ex._block(axes)
+        return x.reshape(n, -1, *x.shape[1:])[b:b + 1]
+
+    @staticmethod
+    def backward(ctx, g):
+        # the block's cotangents summed over the processes that hold the
+        # same block, then the blocks gathered: every process the whole sum
+        ex, axes = ctx.ex, ctx.axes
+        rest = tuple(a for a in ex.mesh.axis_names if a not in axes)
+        if rest:
+            g = ex._psum(g, rest)
+        if axes:
+            g = ex._all_gather(g, axes)[0]
+        return g.reshape(-1, *g.shape[2:]), None, None
+
+
 class ProcessGroups(_Exchange):
     """One rank a process over ``torch.distributed``: ``ranks`` is 1."""
     ranks = 1
@@ -214,11 +319,13 @@ class ProcessGroups(_Exchange):
         return group
 
     def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
-        import torch.distributed as dist
-
         axes = tuple(axes)
         self._check_split(x, axes)
-        refuse_grad("all_to_all", x)
+        return _AllToAll.apply(x, self, axes)
+
+    def _all_to_all(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
+        import torch.distributed as dist
+
         key = self._in_mesh_order(axes)
         send = self._reorder(x[0], axes, key).contiguous()
         recv = torch.empty_like(send)
@@ -226,11 +333,14 @@ class ProcessGroups(_Exchange):
         return self._reorder(recv, key, axes)[None]
 
     def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = tuple(axes)
+        if not axes:
+            return x
+        return _Psum.apply(x, self, axes)
+
+    def _psum(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
         import torch.distributed as dist
 
-        if not tuple(axes):
-            return x
-        refuse_grad("psum", x)
         out = x.clone()
         dist.all_reduce(out, group=self._group(axes))
         return out
@@ -247,20 +357,17 @@ class ProcessGroups(_Exchange):
         if x.shape[0] % n:
             raise ValueError(f"{x.shape[0]} rows do not split over {axes} "
                              f"({n} blocks)")
-        b = self._block(axes)
-        return x.reshape(n, -1, *x.shape[1:])[b:b + 1]
+        return _Shard.apply(x, self, axes)
 
     def unshard(self, x: torch.Tensor, axes) -> torch.Tensor:
-        axes = tuple(axes)
-        if not axes:
-            return x[0]
-        return self.all_gather(x, axes)[0].reshape(-1, *x.shape[2:])
+        return _Unshard.apply(x, self, tuple(axes))
 
     def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return _AllGather.apply(x, self, tuple(axes))
+
+    def _all_gather(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
         import torch.distributed as dist
 
-        axes = tuple(axes)
-        refuse_grad("all_gather", x)
         key = self._in_mesh_order(axes)
         parts = [torch.empty_like(x[0]) for _ in range(self.axis_size(axes))]
         dist.all_gather(parts, x[0].contiguous(), group=self._group(axes))

@@ -220,8 +220,9 @@ class ShuffleFedInput:
         tensor is the global batch (the train step splits it over the
         pods); ``self.shardings`` names each input's ``PartitionSpec``
         on the mesh, as JAX's ``NamedSharding`` does. A
-        ``ProcessGroupMesh`` (one rank a process) is refused: a train
-        step over several processes is not ported."""
+        ``ProcessGroupMesh`` (one rank a process) is refused: its put, by
+        each process's block of the batch, is not ported
+        (``ROADMAP.md`` queue 1 item 6)."""
         import torch
 
         from repro_torch.distributed.sharding import DEFAULT_RULES, batch_specs

@@ -14,14 +14,23 @@ grad_sync modes:
 
 The JAX package runs the blob modes inside a ``shard_map`` manual over
 the pod axis. On a ``StackedMesh`` the port runs the pods in turn and
-stacks their gradients on a leading pod axis; a ``ProcessGroupMesh`` is
-refused (a step over several processes is not ported). Inside the pod
-region both packages pass no mesh to the loss, so its MoE layers take
-the dense dispatch there whatever the shuffle mode; an expert-parallel
-dispatch within each pod is left for later. ``cast_compute_params`` has
-no twin: the port's layers cast each f32 weight to the compute dtype
-where they use it, which gives the same values as casting it once at
-the top of the step.
+stacks their gradients on a leading pod axis; on a ``ProcessGroupMesh``
+each process runs its own pod's block of the batch, as JAX's
+``P("pod")`` gives it, on a gradient tree of one pod, and the processes
+of a pod compute the same values. Inside the pod region both packages
+pass no mesh to the loss, so its MoE layers take the dense dispatch
+there whatever the shuffle mode; an expert-parallel dispatch within each
+pod is left for later. ``auto`` with a mesh passes the mesh to the loss
+on either back end: every process of a ``ProcessGroupMesh`` takes the
+whole batch and dispatches its MoE layers over the processes, and its
+gradients, metrics and parameters come out the same on every process
+(the exchange's Functions, ``shuffle.exchange``), with no sync after the
+backward pass; each step checks that the processes' gradient norms are
+the same bits, and raises on every process if not (a replicated weight
+read without ``shard(w, ())`` leaves each process its own share of its
+gradient). ``cast_compute_params`` has no twin: the port's layers
+cast each f32 weight to the compute dtype where they use it, which gives
+the same values as casting it once at the top of the step.
 """
 
 from __future__ import annotations
@@ -31,9 +40,10 @@ from typing import Callable, Dict
 
 import torch
 
-from repro_torch.launch.mesh import StackedMesh
+from repro_torch.launch.mesh import ProcessGroupMesh, StackedMesh
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
+from repro_torch.shuffle import exchange as EX
 from repro_torch.shuffle import grad_sync as GS
 from repro_torch.shuffle.api import ShuffleConfig
 from repro_torch.training.optimizer import OptConfig, adamw_update
@@ -111,6 +121,15 @@ def _grads(loss_fn, params, batch, microbatches: int):
     return grads, totals
 
 
+def _check_replicated(ex, grad_norm: torch.Tensor) -> None:
+    """Raise on every process of ``ex``'s mesh unless all hold the same
+    gradient norm (one all-gather of a scalar)."""
+    norms = ex.all_gather(grad_norm.reshape(1, 1), ex.mesh.axis_names)[0, :, 0]
+    if not bool((norms == norms[0]).all()):
+        raise RuntimeError(f"the processes' gradient norms differ ({norms.tolist()}): a "
+                           f"replicated weight was read without exchange.shard(w, ())")
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics); ``params`` (``lm.LM``) is updated in place and returned.
@@ -120,10 +139,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     if tcfg.grad_sync not in GRAD_SYNC:
         raise ValueError(f"grad_sync must be one of {GRAD_SYNC}, got {tcfg.grad_sync!r}")
     loss_fn = make_loss_fn(cfg, tcfg, mesh=mesh)
+    replicas = EX.for_mesh(mesh) if isinstance(mesh, ProcessGroupMesh) else None
 
     def plain_step(params, opt_state, batch):
         grads, metrics = _grads(loss_fn, params, batch, tcfg.microbatches)
         params, opt_state, om = adamw_update(tcfg.opt, grads, opt_state, params)
+        if replicas is not None:
+            _check_replicated(replicas, om["grad_norm"])
         metrics.update(om)
         return params, opt_state, metrics
 
@@ -132,23 +154,23 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
                 and pod in mesh.axis_names and mesh.shape[pod] > 1)
     if not use_blob:
         return plain_step
-    if not isinstance(mesh, StackedMesh):
-        raise ValueError(f"the {tcfg.grad_sync!r} gradient sync runs the pods in turn "
-                         f"on a StackedMesh, not on a {type(mesh).__name__}")
 
     compress = tcfg.grad_sync == "blob_int8"
     npods = mesh.shape[pod]
+    stacked_pods = isinstance(mesh, StackedMesh)
     exchange = GS.pod_exchange(mesh, pod)
     tcfg_pod = dataclasses.replace(tcfg, shuffle=tcfg.shuffle.pod_local())
     pod_loss_fn = make_loss_fn(cfg, tcfg_pod, mesh=None)
 
     def pod_local_step(params, opt_state, batch):
         parts = _split_micro(batch, npods)
+        if not stacked_pods:
+            parts = [parts[mesh.coords[pod]]]        # this process's pod's block
         stacked, metrics = None, []
         for p_idx, part in enumerate(parts):
             grads, m = _grads(pod_loss_fn, params, part, tcfg.microbatches)
             if stacked is None:
-                stacked = {n: g.new_empty((npods, *g.shape)) for n, g in grads.items()}
+                stacked = {n: g.new_empty((len(parts), *g.shape)) for n, g in grads.items()}
             for n, g in grads.items():
                 stacked[n][p_idx] = g
             del grads
@@ -159,6 +181,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
         del stacked
         # every pod holds the same synced gradients: the first pod's
         grads = {n: g[0] for n, g in synced.items()}
+        if not stacked_pods:
+            # every pod's metrics (JAX's pmean), averaged as on stacked pods
+            keys = list(metrics[0])
+            row = torch.stack([metrics[0][k] for k in keys])[None]
+            every = exchange.all_gather(row, (pod,))[0]
+            metrics = [dict(zip(keys, r)) for r in every]
         out = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
         params, opt_state, om = adamw_update(tcfg.opt, grads, opt_state, params)
         out.update(om, grad_sync_bytes=nbytes)

@@ -24,7 +24,11 @@ JAX package's.
     dispatch. A mesh that keeps the pod axis is refused.
 (d) The process-group back end (gloo, 4 processes, pod 2 x model 2)
     against the stacked one: ``all_gather`` and the gradient sync bit for
-    bit; its collectives refuse a tensor that requires grad.
+    bit, and the gradients through its psum, all-to-all, all-gather and
+    unshard (each read once where it is replicated, as the exchange's
+    autograd Functions take it; ``tests/test_torch_pg_autograd.py`` holds
+    them in full). The train step over a process group is
+    ``tests/test_torch_pg_train_step.py``'s.
 (e) The train step's ``blob`` and ``blob_int8`` sync against ``auto`` on
     granite-3-2b SMOKE, which ``tests/test_multidevice.py:217`` trains,
     with that test's bounds, and on mamba2-130m SMOKE with the same
@@ -366,17 +370,16 @@ for name, (compress, ef, average) in CASES.items():
 x = torch.arange(6, dtype=torch.float32)[None] + 10 * rank
 for axes in (("pod",), ("model",), ("model", "pod")):
     out["gather_" + "_".join(axes)] = ex.all_gather(x, axes).numpy()
-refused = 0
-for fn in (lambda t: ex.psum(t, ("pod",)), lambda t: ex.all_to_all(t, ("pod",)),
-           lambda t: ex.all_gather(t, ("pod",)), lambda t: ex.unshard(t, ("pod",))):
-    try:
-        fn(torch.ones((1, 2, 3), requires_grad=True))
-    except ValueError as e:
-        refused += "does not differentiate" in str(e)
-out["refused"] = np.int64(refused)
+for op in GRAD_OPS:
+    t = (torch.arange(6.0).reshape(1, 2, 3) + 10 * rank).requires_grad_()
+    y = getattr(ex, op)(t, ("pod",))
+    out[f"grad_{op}"], = torch.autograd.grad((y * y).sum(), t)
 np.savez(f"{folder}/out{rank}.npz", **out)
 dist.destroy_process_group()
 """
+
+
+GRAD_OPS = ("psum", "all_to_all", "all_gather", "unshard")
 
 
 def _free_port():
@@ -390,7 +393,8 @@ def test_process_groups_match_stacked_pods(tmp_path):
     np.savez(tmp_path / "grads.npz", a=tree["a"], b=tree["b"], d=tree["c"]["d"],
              e=tree["c"]["e"])
     code = (textwrap.dedent(PG_WORKER).replace("BLOB_BYTES", str(BLOB_BYTES))
-            .replace("CASES.items()", f"{SYNC_CASES!r}.items()"))
+            .replace("CASES.items()", f"{SYNC_CASES!r}.items()")
+            .replace("GRAD_OPS", repr(GRAD_OPS)))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     port = str(_free_port())
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), port, str(tmp_path)],
@@ -414,7 +418,17 @@ def test_process_groups_match_stacked_pods(tmp_path):
         want = ex.all_gather(xs, axes)
         for r in range(4):
             assert np.array_equal(got[r]["gather_" + "_".join(axes)][0], want[r].numpy())
-    assert all(int(g["refused"]) == 4 for g in got)
+    # each process's gradient is the stacked graph's for its rank, where
+    # the loss reads a psum's or a gather's output once per group (at pod
+    # 0) and the unshard's once (at model 0), each process its own copy
+    for op in GRAD_OPS:
+        t = (torch.arange(6.0).reshape(1, 2, 3) + 10 * torch.arange(4.0)[:, None, None]
+             ).requires_grad_()
+        y = getattr(ex, op)(t, ("pod",))
+        read = y if op in ("all_to_all", "unshard") else y[:2]
+        g, = torch.autograd.grad((read * read).sum(), t)
+        for r in range(4):
+            assert np.array_equal(got[r][f"grad_{op}"][0], g[r].numpy()), (op, r)
 
 
 # ---------------------------------------------------------------------------
@@ -498,8 +512,6 @@ def test_blob_train_step_runs_the_moe_layers_pod_local(monkeypatch):
     assert len(seen) == 6 * 2 * 2 * 2 * (cfg.num_layers - cfg.moe.first_dense_layers)
     assert all(ms is None and ctx for ms, ctx in seen)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
-    with pytest.raises(ValueError, match="StackedMesh"):
-        make_train_step(cfg, tcfg, mesh=M.ProcessGroupMesh(("pod", "model"), (2, 2)))
 
 
 # ---------------------------------------------------------------------------
