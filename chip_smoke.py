@@ -33,6 +33,8 @@
    ``GPIPE_GRAD_TOL`` relative Frobenius; no kernel of the port
    launched. Prints the worst difference, the gradients' errors and both
    wall times (one card runs the stages in turn: a report, no speedup).
+   The process-group pipeline differentiates too; it is held over gloo
+   in the tests only, as NCCL refuses two ranks on one card.
 4. Blob data plane: holds each blob kernel against its plain PyTorch
    version on the card, bit for bit, over payload dtypes, overflow,
    empty bins, ragged tiles and two rows-per-block values; then runs the

@@ -18,9 +18,18 @@ in this process, each once (a replica would compute the same), one
 stage's microbatch at a time: the calls a ``ProcessGroupMesh`` process
 makes, so the two back ends agree bit for bit. The stacked schedule is
 plain tensor algebra, so autograd differentiates through it. On a
-``ProcessGroupMesh`` each process runs its own stage, and its hop
-(``exchange.ppermute``) does not differentiate: a call that would need
-it to is refused in every process of the stage axis alike.
+``ProcessGroupMesh`` each process runs its own stage and differentiates
+as JAX's ``shard_map`` transposes: each hop's adjoint is the reverse hop,
+``x``'s cotangent (``P()``) is summed over the stage axis and each
+parameter's (``P(stage_axis)``) gathered over it, on every process, and
+nothing is summed over the axes that replicate (``exchange.shard`` with
+``manual=(stage_axis,)``). A stage that reads neither ``x`` nor a hop's
+output would not reach their backward collectives, and a ``stage_fn``
+may close over a weight that requires grad in some stages only: so the
+stages agree on what records (``record_together``, up front and before
+each hop), and the result is joined to every recorded collective
+(``reach``), so that every process posts the same backward collectives
+in the same order.
 """
 
 from __future__ import annotations
@@ -57,18 +66,23 @@ def gpipe_apply(stage_fn: Callable, params: Dict[str, torch.Tensor],
             raise ValueError(f"params[{name!r}] of shape {tuple(leaf.shape)} "
                              f"needs a leading dim of the {n_stages} stages "
                              f"along {stage_axis!r}")
-    x_micro = x.reshape(n_micro, B // n_micro, *x.shape[1:])
+    axes = (stage_axis,)
     if isinstance(mesh, StackedMesh):
-        mesh = StackedMesh((stage_axis,), (n_stages,))
+        ex = exchange.for_mesh(StackedMesh(axes, (n_stages,)))
         stages = list(range(n_stages))
+        local = [{k: v[s] for k, v in params.items()} for s in stages]
+        x_in, recorded = x, []
     else:
+        ex = exchange.for_mesh(mesh)
         stages = [mesh.coords[stage_axis]]
-    ex = exchange.for_mesh(mesh)
-    # On process groups the stages agree on a refusal, up front and again
-    # before each hop (a stage_fn may close over weights that require
-    # grad), so that no stage is left waiting on one that raised.
-    ex.refuse_grad_together("gpipe_apply", (stage_axis,), x, *params.values())
-    local = [{k: v[s] for k, v in params.items()} for s in stages]
+        # the stages record alike; the cotangents sum over the stage axis
+        # alone: x's (read by stage 0 only) and each leaf's, gathered
+        x_in, *leaves = ex.record_together(axes, x, *params.values())
+        x_in = ex.shard(x_in, (), manual=axes)[0]
+        blocks = [ex.shard(v, axes, manual=axes)[0, 0] for v in leaves]
+        local = [dict(zip(params, blocks))]
+        recorded = [x_in, *blocks]
+    x_micro = x_in.reshape(n_micro, B // n_micro, *x.shape[1:])
     last = n_stages - 1
 
     buf = x_micro.new_zeros((len(stages),) + x_micro.shape[1:])
@@ -85,10 +99,11 @@ def gpipe_apply(stage_fn: Callable, params: Dict[str, torch.Tensor],
             else:
                 y = buf[r]             # an idle stage passes its buffer on
             ys.append(y)
-        ex.refuse_grad_together("gpipe_apply", (stage_axis,), *ys)
+        (ys,) = ex.record_together(axes, torch.stack(ys))
         # one hop downstream; the last stage's wraps to stage 0, unread
-        buf = ex.ppermute(torch.stack(ys), stage_axis)
+        buf = ex.ppermute(ys, stage_axis)
+        recorded.append(buf)
     # the result lives on the last stage; share it with every stage
     out = torch.stack([torch.stack(done) if s == last else torch.zeros_like(x_micro)
                        for s in stages])
-    return ex.psum(out, (stage_axis,))[0].reshape(x.shape)
+    return ex.psum(ex.reach(out, *recorded), axes)[0].reshape(x.shape)

@@ -26,10 +26,14 @@ rank-major over the mesh's axes, and offer:
                         ring ``perm = [(i, (i + 1) % n)]``: each rank's x
                         goes to the rank one further along ``axis``
                         (the last to the first), other coordinates kept
-  refuse_grad_together(name, axes, *tensors)
-                        refuse a call whose tensors require grad in any
-                        rank that differs only along ``axes``, in all of
-                        them alike (the process-group back end only)
+  record_together(axes, *tensors)
+                        the tensors, each made to require grad where it
+                        requires grad in any rank that differs only along
+                        ``axes`` (the process-group back end; the stacked
+                        one returns them as they are)
+  reach(out, *tensors)  out, whose backward pass also runs the backward
+                        of every one of ``tensors`` (the process-group back
+                        end; the stacked one returns out)
 
 ``Stacked`` (a ``StackedMesh``, every rank in this process) moves tensors
 by transposing rank axes; ``ProcessGroups`` (a ``ProcessGroupMesh``, one
@@ -40,9 +44,9 @@ The stacked back end is plain tensor algebra, so autograd differentiates
 through it (an all-to-all's adjoint is the same all-to-all, a psum's a
 psum). The process-group back end moves bytes with ``torch.distributed``,
 which autograd does not see: so ``all_to_all``, ``psum``, ``shard``,
-``unshard`` and ``all_gather`` run inside an autograd Function, which
-records a backward node only where grad is enabled and an input
-requires it; ``ppermute`` refuses such a tensor (``refuse_grad``).
+``unshard``, ``all_gather`` and ``ppermute`` run inside an autograd
+Function, which records a backward node only where grad is enabled and
+an input requires it.
 
 The Functions' rule: every process computes the same loss, on its own
 copy of what the collectives replicate, and must get the stacked back
@@ -66,7 +70,13 @@ cotangent of its copy:
                input's whole gradient, as every rank expands the same
                global array. It moves as a psum of the block over the
                other axes, then an all-gather of the blocks over
-               ``axes``.
+               ``axes``. ``shard(x, axes, manual=...)`` is
+               ``shard_map`` manual over ``manual`` alone (its
+               ``axis_names``): the sum runs over the manual axes only,
+               as the ranks along the others compute the same thing
+  ppermute     the reverse hop, ``lax.ppermute``'s transpose (the
+               inverse permutation): each rank's cotangent goes to the
+               rank one step back along the axis
 
 The rule puts a duty on callers: a replicated tensor that each process
 reads against its own part of the work (a weight applied to its own
@@ -79,7 +89,12 @@ of them if not.
 
 Every process enters the same Functions in the same order, so their
 backward collectives line up (a recompute under ``torch.utils.checkpoint``
-issues its forward collectives again, in every process alike).
+issues its forward collectives again, in every process alike): autograd
+runs the nodes it reaches from the loss latest first. Where the processes
+of a group could differ in what records or in what the loss reaches (a
+pipeline stage that reads neither ``x`` nor its hops' output), the caller
+agrees on recording (``record_together``, a flag max-reduced over the
+group) and joins every recorded output to the result (``reach``).
 """
 
 from __future__ import annotations
@@ -209,19 +224,14 @@ class Stacked(_Exchange):
         v = x.reshape(*self.mesh.sizes, *x.shape[1:])
         return torch.roll(v, 1, dims=self.mesh.axis_names.index(axis)).reshape(x.shape)
 
-    def refuse_grad_together(self, name: str, axes, *tensors: torch.Tensor) -> None:
-        """Nothing to refuse: the stacked back end differentiates."""
+    def record_together(self, axes, *tensors: torch.Tensor) -> list:
+        """Every rank is in this process: the tensors as they are."""
+        return list(tensors)
 
-
-def _grad_refusal(name: str) -> ValueError:
-    return ValueError(f"the process-group {name} does not differentiate: "
-                      f"autograd does not see torch.distributed; run the "
-                      f"backward pass over a StackedMesh")
-
-
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise _grad_refusal(name)
+    def reach(self, out: torch.Tensor, *tensors: torch.Tensor) -> torch.Tensor:
+        """No backward collective waits on a node autograd does not reach:
+        out as it is."""
+        return out
 
 
 class _AllToAll(torch.autograd.Function):
@@ -272,8 +282,8 @@ class _Unshard(torch.autograd.Function):
 
 class _Shard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ex, axes):
-        ctx.ex, ctx.axes = ex, axes
+    def forward(ctx, x, ex, axes, manual):
+        ctx.ex, ctx.axes, ctx.manual = ex, axes, manual
         n, b = ex.axis_size(axes), ex._block(axes)
         return x.reshape(n, -1, *x.shape[1:])[b:b + 1]
 
@@ -282,12 +292,37 @@ class _Shard(torch.autograd.Function):
         # the block's cotangents summed over the processes that hold the
         # same block, then the blocks gathered: every process the whole sum
         ex, axes = ctx.ex, ctx.axes
-        rest = tuple(a for a in ex.mesh.axis_names if a not in axes)
+        rest = tuple(a for a in ctx.manual if a not in axes)
         if rest:
             g = ex._psum(g, rest)
         if axes:
             g = ex._all_gather(g, axes)[0]
-        return g.reshape(-1, *g.shape[2:]), None, None
+        return g.reshape(-1, *g.shape[2:]), None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ex, axis):
+        ctx.ex, ctx.axis = ex, axis
+        return ex._ppermute(x, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the inverse permutation: each cotangent one hop back
+        return ctx.ex._ppermute(g, ctx.axis, -1), None, None
+
+
+class _Reach(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, *tensors):
+        ctx.n = len(tensors)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        # nothing flows to ``tensors``; their nodes run all the same,
+        # on a cotangent of zeros
+        return (g,) + (None,) * ctx.n
 
 
 class ProcessGroups(_Exchange):
@@ -351,13 +386,20 @@ class ProcessGroups(_Exchange):
             b = b * self.mesh.shape[a] + self.coords[a]
         return b
 
-    def shard(self, x: torch.Tensor, axes) -> torch.Tensor:
+    def shard(self, x: torch.Tensor, axes, manual=None) -> torch.Tensor:
+        """``manual`` (default every axis): the axes a ``shard_map`` would
+        be manual over; the adjoint sums over those not in ``axes`` only."""
         axes = tuple(axes)
+        manual = self.mesh.axis_names if manual is None else tuple(manual)
+        self.axis_size(manual)
+        if not set(axes) <= set(manual):
+            raise ValueError(f"the sharded axes {axes} are not all in the "
+                             f"manual axes {manual}")
         n = self.axis_size(axes)
         if x.shape[0] % n:
             raise ValueError(f"{x.shape[0]} rows do not split over {axes} "
                              f"({n} blocks)")
-        return _Shard.apply(x, self, axes)
+        return _Shard.apply(x, self, axes, manual)
 
     def unshard(self, x: torch.Tensor, axes) -> torch.Tensor:
         return _Unshard.apply(x, self, tuple(axes))
@@ -374,42 +416,51 @@ class ProcessGroups(_Exchange):
         return self._reorder(torch.stack(parts), key, axes)[None]
 
     def ppermute(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sends to the next rank along ``axis`` and receives from the one
-        before, posted as one batch before either is waited on (a blocking
-        send around the ring would deadlock, and NCCL needs the pair in one
-        group); peers are the global ranks of this process's coordinates
-        with ``axis`` moved one step."""
+        n = self.axis_size((axis,))
+        return x if n == 1 else _PPermute.apply(x, self, axis)
+
+    def _ppermute(self, x: torch.Tensor, axis: str, step: int) -> torch.Tensor:
+        """Sends to the rank ``step`` further along ``axis`` and receives
+        from the one ``step`` before, posted as one batch before either is
+        waited on (a blocking send around the ring would deadlock, and NCCL
+        needs the pair in one group); peers are the global ranks of this
+        process's coordinates with ``axis`` moved ``step``."""
         import torch.distributed as dist
 
         n = self.axis_size((axis,))
-        refuse_grad("ppermute", x)
-        if n == 1:
-            return x
-        coords = self.coords
-        at = [coords[a] for a in self.mesh.axis_names]
+        at = [self.coords[a] for a in self.mesh.axis_names]
         i = self.mesh.axis_names.index(axis)
 
-        def peer(step: int) -> int:
-            return int(np.ravel_multi_index(at[:i] + [(at[i] + step) % n] + at[i + 1:],
+        def peer(k: int) -> int:
+            return int(np.ravel_multi_index(at[:i] + [(at[i] + k) % n] + at[i + 1:],
                                             self.mesh.sizes))
 
         send = x[0].contiguous()
         recv = torch.empty_like(send)
-        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, peer(1)),
-                                           dist.P2POp(dist.irecv, recv, peer(-1))]):
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, peer(step)),
+                                           dist.P2POp(dist.irecv, recv, peer(-step))]):
             req.wait()
         return recv[None]
 
-    def refuse_grad_together(self, name: str, axes, *tensors: torch.Tensor) -> None:
-        """``refuse_grad`` agreed over the group of ``axes``: one flag,
-        "a tensor here requires grad", is max-reduced over the group, so
-        every process of it raises alike. A process that raised alone
-        would leave its peers waiting on it in their next collective."""
+    def record_together(self, axes, *tensors: torch.Tensor) -> list:
+        """The tensors, each made to require grad (a detached copy that
+        does) where it requires grad in any process of the group of
+        ``axes``: one flag a tensor, max-reduced over the group, so that
+        the collectives it enters record in every process of the group
+        alike. One that recorded in some processes only would leave their
+        backward pass waiting on the others."""
         import torch.distributed as dist
 
-        flag = torch.tensor([int(torch.is_grad_enabled()
-                                 and any(t.requires_grad for t in tensors))],
-                            device=tensors[0].device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group(axes))
-        if flag.item():
-            raise _grad_refusal(f"{name} (in some process along {tuple(axes)})")
+        grad = torch.is_grad_enabled()
+        flags = torch.tensor([int(grad and t.requires_grad) for t in tensors],
+                             device=tensors[0].device)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self._group(axes))
+        return [t.detach().requires_grad_() if f and not t.requires_grad else t
+                for t, f in zip(tensors, flags.tolist())]
+
+    def reach(self, out: torch.Tensor, *tensors: torch.Tensor) -> torch.Tensor:
+        """out, joined to ``tensors`` so that a backward pass from it runs
+        theirs too (on zeros where nothing else reads them): each
+        collective recorded in every process of a group then runs in every
+        one, also where this process's result does not read its output."""
+        return _Reach.apply(out, *tensors)

@@ -1,17 +1,24 @@
 """repro_torch.distributed.gpipe_apply against the JAX package's
 gpipe_apply and the sequential stack: (a) JAX's case (2 stages, d 32, B
 16, 4 microbatches) on 8 host devices against the port on the stacked
-test mesh, same numpy-made inputs, within 1e-5; (b) 4 stacked stages at
-1, 3 and 8 microbatches against the sequential stack; (c) gradients
-through the stacked pipeline against those through the sequential
-stack; (d) gloo processes (pod 2; pod 2 x model 2) against the stacked
-pipeline bit for bit, the process-group ``ppermute``, and refusals of
-gradients that every stage makes alike, also where only one stage's
-``stage_fn`` closes over a weight that requires grad; (e) the
-refusals."""
+test mesh, same numpy-made inputs, the output and ``jax.grad`` of
+``(y * g).sum()`` with respect to the parameters and x, within 1e-5;
+(b) 4 stacked stages at 1, 3 and 8 microbatches against the sequential
+stack; (c) gradients through the stacked pipeline against those through
+the sequential stack; (d) gloo processes (pod 2; pod 2 x model 2; pod 4)
+against the stacked pipeline: the output bit for bit, the process-group
+``ppermute`` and its gradient (the reverse hop) bit for bit, the
+pipeline's gradients at 1 and 4 microbatches (the stacked pipeline's
+bits, within 1e-5 of the sequential stack's and of JAX's, the same bits
+on every process), and a ``stage_fn`` that closes over a weight that
+requires grad in stage 1 only, which every process differentiates
+through to the end; (e) the refusals.
 
+    PYTHONPATH=src python -m pytest -q tests/test_torch_pipeline_parallel.py
+"""
+
+import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -24,6 +31,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.distributed import gpipe_apply
 from repro_torch.launch import mesh as M
 from repro_torch.shuffle.exchange import for_mesh
+from test_torch_pg_autograd import run_gloo
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-5, rtol=1e-5)       # tests/test_pipeline_parallel.py's
@@ -51,6 +59,18 @@ def tensors(params, x):
     return {k: torch.from_numpy(v) for k, v in params.items()}, torch.from_numpy(x)
 
 
+def cotangent(shape, seed=3):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def grads(fn, params, x, g):
+    """[dw, db, dx] of ``(fn(params, x) * g).sum()``."""
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xx = x.clone().requires_grad_()
+    (fn(p, xx) * g).sum().backward()
+    return [p["w"].grad, p["b"].grad, xx.grad]
+
+
 # ---------------------------------------------------------------------------
 # (a) against JAX on 8 host devices
 # ---------------------------------------------------------------------------
@@ -68,26 +88,52 @@ assert mesh.shape["pod"] == 2
 def stage_fn(p, xm):
     return jnp.tanh(xm @ p["w"] + p["b"])
 
-out = jax.jit(lambda p, x: gpipe_apply(stage_fn, p, x, mesh=mesh, n_micro=4))(
-    {"w": a["w"], "b": a["b"]}, a["x"])
-np.save(sys.argv[2], np.asarray(out))
+def apply(p, x):
+    return gpipe_apply(stage_fn, p, x, mesh=mesh, n_micro=4)
+
+params = {"w": a["w"], "b": a["b"]}
+out = jax.jit(apply)(params, a["x"])
+dp, dx = jax.jit(jax.grad(lambda p, x: (apply(p, x) * a["g"]).sum(), argnums=(0, 1)))(
+    params, a["x"])
+np.savez(sys.argv[2], y=np.asarray(out), dw=np.asarray(dp["w"]), db=np.asarray(dp["b"]),
+         dx=np.asarray(dx))
 """
 
 
-def test_gpipe_matches_jax_on_8_host_devices(tmp_path):
+@pytest.fixture(scope="module")
+def jax_gpipe(tmp_path_factory):
+    """JAX's output and [dw, db, dx] on 8 host devices, for the inputs of
+    ``make_inputs(2, 32, 16)`` and the cotangent ``cotangent((16, 32))``."""
+    folder = tmp_path_factory.mktemp("jax_gpipe")
     params, x = make_inputs(2, 32, 16)
-    np.savez(tmp_path / "in.npz", x=x, **params)
+    np.savez(folder / "in.npz", x=x, g=cotangent(x.shape), **params)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(JAX_GPIPE),
-                        str(tmp_path / "in.npz"), str(tmp_path / "out.npy")],
+                        str(folder / "in.npz"), str(folder / "out.npz")],
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
-    want = np.load(tmp_path / "out.npy")
+    out = dict(np.load(folder / "out.npz"))
+    return out["y"], [out["dw"], out["db"], out["dx"]]
+
+
+def test_gpipe_matches_jax_on_8_host_devices(jax_gpipe):
+    params, x = make_inputs(2, 32, 16)
+    want = jax_gpipe[0]
     y = gpipe_apply(stage_fn, *tensors(params, x), mesh=M.make_test_mesh(devices=8),
                     n_micro=4)
     np.testing.assert_allclose(y.numpy(), want, **TOL)
     np.testing.assert_allclose(y.numpy(), sequential(*tensors(params, x)).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("n_micro", [1, 4])
+def test_stacked_gpipe_gradients_match_jax(jax_gpipe, n_micro):
+    params, x = make_inputs(2, 32, 16)
+    got = grads(lambda p, xx: gpipe_apply(stage_fn, p, xx, n_micro=n_micro,
+                                          mesh=M.make_test_mesh(devices=8)),
+                *tensors(params, x), torch.from_numpy(cotangent(x.shape)))
+    for a, want in zip(got, jax_gpipe[1]):
+        np.testing.assert_allclose(a.numpy(), want, **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -108,18 +154,10 @@ def test_stacked_gpipe_matches_the_sequential_stack(n_micro, mesh):
 @pytest.mark.parametrize("n_micro", [1, 3, 8])
 def test_stacked_gpipe_gradients_match_the_sequential_stack(n_micro):
     params, x = tensors(*make_inputs(4, 32, 24))
-    g = torch.from_numpy(np.random.default_rng(3).standard_normal(x.shape)
-                         .astype(np.float32))
-
-    def grads(fn):
-        p = {k: v.clone().requires_grad_() for k, v in params.items()}
-        xx = x.clone().requires_grad_()
-        (fn(p, xx) * g).sum().backward()
-        return [p["w"].grad, p["b"].grad, xx.grad]
-
+    g = torch.from_numpy(cotangent(x.shape))
     got = grads(lambda p, xx: gpipe_apply(stage_fn, p, xx, mesh=M.stacked_mesh(pod=4),
-                                          n_micro=n_micro))
-    for a, b in zip(got, grads(sequential)):
+                                          n_micro=n_micro), params, x, g)
+    for a, b in zip(got, grads(sequential, params, x, g)):
         torch.testing.assert_close(a, b, **TOL)
 
 
@@ -141,7 +179,7 @@ def test_stacked_ppermute_shifts_one_hop_along_the_axis():
 # ---------------------------------------------------------------------------
 
 PG_WORKER = """
-import sys
+import json, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -149,14 +187,14 @@ from repro_torch.distributed import gpipe_apply
 from repro_torch.launch.mesh import process_group_mesh
 from repro_torch.shuffle.exchange import for_mesh
 
-rank, world, port, folder = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rank, folder, sizes = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                        world_size=world)
-mesh = process_group_mesh(**({"pod": 2} if world == 2 else {"pod": 2, "model": 2}))
+dist.init_process_group("gloo", init_method=f"file://{folder}/rendezvous", rank=rank,
+                        world_size=int(np.prod(list(sizes.values()))))
+mesh = process_group_mesh(**sizes)
 a = np.load(f"{folder}/in.npz")
 params = {"w": torch.from_numpy(a["w"]), "b": torch.from_numpy(a["b"])}
-x = torch.from_numpy(a["x"])
+x, g = torch.from_numpy(a["x"]), torch.from_numpy(a["g"])
 
 def stage_fn(p, xm):
     return torch.tanh(xm @ p["w"] + p["b"])
@@ -167,56 +205,45 @@ ex = for_mesh(mesh)
 t = torch.arange(6, dtype=torch.float32)[None] + 10 * rank
 for axis in mesh.axis_names:
     out["perm_" + axis] = ex.ppermute(t, axis).numpy()
-refused = 0
-try:
-    ex.ppermute(torch.ones((1, 3), requires_grad=True), "pod")
-except ValueError as e:
-    refused += "does not differentiate" in str(e)
-try:
-    gpipe_apply(stage_fn, {k: v.clone().requires_grad_() for k, v in params.items()},
-                x, mesh=mesh, n_micro=4)
-except ValueError as e:
-    refused += "does not differentiate" in str(e)
-# a weight that requires grad, closed over by stage 1 alone: stage 0 must
-# refuse with it rather than wait on it
+    # the gradient of <ppermute(t), c>: the cotangent one hop back
+    tg = t.clone().requires_grad_()
+    (ex.ppermute(tg, axis) * torch.from_numpy(a["c"][rank:rank + 1])).sum().backward()
+    out["dperm_" + axis] = tg.grad.numpy()
+for n in (1, 4):
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xx = x.clone().requires_grad_()
+    (gpipe_apply(stage_fn, p, xx, mesh=mesh, n_micro=n) * g).sum().backward()
+    out[f"dw{n}"], out[f"db{n}"], out[f"dx{n}"] = (p["w"].grad.numpy(),
+                                                   p["b"].grad.numpy(), xx.grad.numpy())
+# a weight that requires grad, closed over by stage 1 alone: every stage
+# records alike, so the loss requires grad and backward ends everywhere
 stage = mesh.coords["pod"]
 w_closed = params["w"][stage].clone().requires_grad_(stage == 1)
-try:
-    gpipe_apply(lambda p, xm: torch.tanh(xm @ w_closed + p["b"]), params, x,
-                mesh=mesh, n_micro=4)
-except ValueError as e:
-    refused += "does not differentiate" in str(e)
-out["refused"] = np.int64(refused)
+loss = (gpipe_apply(lambda p, xm: torch.tanh(xm @ w_closed + p["b"]), params, x,
+                    mesh=mesh, n_micro=4) * g).sum()
+out["closed_records"] = np.int64(loss.requires_grad)
+loss.backward()
+if stage == 1:
+    out["dw_closed"] = w_closed.grad.numpy()
 np.savez(f"{folder}/out{rank}.npz", **out)
 dist.destroy_process_group()
 """
+PG_SIZES = [{"pod": 2}, {"pod": 2, "model": 2}, {"pod": 4}]
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def bits(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.float32).view(np.uint32)
 
 
-@pytest.mark.parametrize("sizes", [{"pod": 2}, {"pod": 2, "model": 2}],
-                         ids=["pod2", "pod2-model2"])
-def test_process_groups_match_the_stacked_pipeline(tmp_path, sizes):
-    world = int(np.prod(list(sizes.values())))
-    params, x = make_inputs(2, 32, 16)
-    np.savez(tmp_path / "in.npz", x=x, **params)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", textwrap.dedent(PG_WORKER), str(r),
-                               str(world), port, str(tmp_path)],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(world)]
-    try:
-        logs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:        # a process stuck in a collective is ended
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
-    got = [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(world)]
+@pytest.mark.parametrize("sizes", PG_SIZES, ids=["pod2", "pod2-model2", "pod4"])
+def test_process_groups_match_the_stacked_pipeline(tmp_path, sizes, jax_gpipe):
+    world, n_stages = int(np.prod(list(sizes.values()))), sizes["pod"]
+    params, x = make_inputs(n_stages, 32, 16)
+    g = cotangent(x.shape)
+    c = cotangent((world, 6), seed=5)
+    np.savez(tmp_path / "in.npz", x=x, g=g, c=c, **params)
+    got = run_gloo(tmp_path, textwrap.dedent(PG_WORKER), json.dumps(sizes), n=world,
+                   timeout=120)
     mesh = M.stacked_mesh(**sizes)
     for n in (1, 4):
         want = gpipe_apply(stage_fn, *tensors(params, x), mesh=mesh, n_micro=n).numpy()
@@ -226,9 +253,30 @@ def test_process_groups_match_the_stacked_pipeline(tmp_path, sizes):
     t = torch.arange(6, dtype=torch.float32)[None] + 10 * torch.arange(world * 1.0)[:, None]
     for axis in mesh.axis_names:
         want = ex.ppermute(t, axis)
+        tg = t.clone().requires_grad_()
+        (ex.ppermute(tg, axis) * torch.from_numpy(c)).sum().backward()
         for r in range(world):
             assert np.array_equal(got[r]["perm_" + axis][0], want[r].numpy())
-    assert all(int(g["refused"]) == 3 for g in got)
+            assert np.array_equal(bits(got[r]["dperm_" + axis][0]), bits(tg.grad[r]))
+    g = torch.from_numpy(g)
+    seq = grads(sequential, *tensors(params, x), g)
+    for n in (1, 4):
+        stacked = grads(lambda p, xx: gpipe_apply(stage_fn, p, xx, mesh=mesh, n_micro=n),
+                        *tensors(params, x), g)
+        for i, name in enumerate(("dw", "db", "dx")):
+            mine = got[0][f"{name}{n}"]
+            for r in range(1, world):             # the same bits on every process
+                assert np.array_equal(bits(got[r][f"{name}{n}"]), bits(mine)), (name, n, r)
+            np.testing.assert_allclose(mine, stacked[i].numpy(), atol=1e-6, rtol=1e-6)
+            assert np.array_equal(bits(mine), bits(stacked[i])), (name, n)
+            np.testing.assert_allclose(mine, seq[i].numpy(), **TOL)
+            if n_stages == 2:                     # JAX's case
+                np.testing.assert_allclose(mine, jax_gpipe[1][i], **TOL)
+    closed = [r for r in range(world) if "dw_closed" in got[r]]
+    assert all(int(o["closed_records"]) == 1 for o in got)
+    assert len(closed) == world // n_stages
+    for r in closed:
+        np.testing.assert_allclose(got[r]["dw_closed"], seq[0][1].numpy(), **TOL)
 
 
 # ---------------------------------------------------------------------------
