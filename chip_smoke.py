@@ -72,7 +72,13 @@
    two groups, chunks of 64 and 256, ragged lengths, mamba2-130m's 24
    heads and a bf16 shape off the tensor-core contract (1e-4 atol and
    rtol, all four outputs), each case through the kernel its dtype and
-   shape select, and ``ssd_scan_op`` against ``ssd_chunked``.
+   shape select, and ``ssd_scan_op`` against ``ssd_chunked``; and in the
+   bf16-intra mode (``intra_bf16``: the intra-chunk tensors rounded to
+   bf16 as the JAX package's ``ssd_chunked(..., intra_bf16=True)`` does)
+   a bf16 case on each kernel and an f32 one, through the ``*_bf16i``
+   launchers, y_intra within ``INTRA_BF16_TOL`` (relative max) of
+   ``ssd_chunk_ref(..., intra_bf16=True)`` and the other outputs within
+   1e-4.
 6. Zamba2-2.7B at full width (54 layers, d 2560, parameters drawn on the
    card from the seed): ``make_prefill_step`` on 4 requests of 4,096
    tokens must launch the wgmma flash kernel 9 times (and no other flash
@@ -86,7 +92,18 @@
    new tokens through ``make_decode_step``; the decode logits over the
    prompt must match the prefill logits of the same prompt (f32: 5e-3;
    bf16: a tenth of the largest logit). Prints prefill and decode
-   tokens/s and peak memory.
+   tokens/s and peak memory. Then phase ``zamba2_intra_bf16``: the same
+   weights with ``ssm.intra_bf16`` (the dry run's ``--ssd-bf16``), one
+   prefill on the same 4 x 4,096 tokens, which must launch the
+   tensor-core bf16-intra launcher 54 times, the wgmma flash kernel 9
+   times and no other kernel (the f32-intra launchers never); the first
+   Mamba2 layer's captured per-chunk terms against ``ssd_chunk_ref(...,
+   intra_bf16=True)`` (y_intra within ``INTRA_BF16_TOL``, the others
+   within 1e-4); the logits' gap to the f32-intra prefill's, a report;
+   decode as ``repro_torch.launch.serve`` does it (4 prompts of 16
+   tokens, 8 new tokens) within a tenth of the largest logit of its
+   prefill; both bf16-intra launchers timed on the captured inputs (the
+   CUDA-core one in bf16 and f32).
 7. The ``decoder`` configs at full width, each once the last phase's
    tensors are freed, parameters drawn on the card from the seed:
    qwen2-moe-a2.7b (24 layers, d 2048, 60 routed experts top-4 and 4
@@ -380,6 +397,11 @@ PROMPT_LEN, NEW_TOKENS = 16, 48
 # same math in another order.
 FLASH_TOL = {torch.bfloat16: (8e-3, 1e-2, 5e-3), torch.float32: (2e-5, 1e-5, 1e-5)}
 SSD_TOL = 1e-4                # atol and rtol, f32 outputs
+# y_intra of the bf16-intra mode against its plain version: relative max,
+# tests/test_torch_ssd_intra_bf16.py's KERNEL_TOL (a bf16 rounding of a
+# score flips where the f32 sums of C.B^T differ by an ulp)
+INTRA_BF16_TOL = 1e-3
+INTRA_BF16_NEW_TOKENS = 8
 GAP_TOL_F32 = 5e-3            # prefill vs decode logits, f32 compute
 GAP_TOL_BF16 = 0.1            # ... bf16 compute, times the largest |logit|
 # the decoder configs' serving (qwen2-moe-a2.7b, 57.3 GB of f32
@@ -1031,17 +1053,22 @@ FLASH_CASES = [
     (1, 384, 8, 1, 256, True, F32),
     (1, 4096, 32, 32, 80, True, F32),
 ]
-# (b, S, H, P, G, N, chunk, dtype): Zamba2's N 64 and mamba2-130m's 128,
-# two groups, chunks of 64 and 256, ragged lengths; mamba2-130m's width
-# (24 heads of 64, N 128, one group); a bf16 N of 40, off the tensor-core
-# kernel's contract, which takes the CUDA-core kernel
+# (b, S, H, P, G, N, chunk, dtype, intra_bf16): Zamba2's N 64 and
+# mamba2-130m's 128, two groups, chunks of 64 and 256, ragged lengths;
+# mamba2-130m's width (24 heads of 64, N 128, one group); a bf16 N of 40,
+# off the tensor-core kernel's contract, which takes the CUDA-core kernel;
+# the last three in the bf16-intra mode, one on each kernel in bf16 and
+# one in f32
 SSD_CASES = [
-    (2, 512, 8, 64, 1, 64, 256, torch.bfloat16),
-    (2, 512, 8, 64, 2, 128, 256, torch.bfloat16),
-    (1, 300, 8, 64, 2, 64, 64, torch.float32),
-    (2, 1000, 4, 64, 1, 128, 256, torch.float32),
-    (2, 1024, 24, 64, 1, 128, 256, torch.bfloat16),
-    (1, 600, 8, 64, 1, 40, 256, torch.bfloat16),
+    (2, 512, 8, 64, 1, 64, 256, torch.bfloat16, False),
+    (2, 512, 8, 64, 2, 128, 256, torch.bfloat16, False),
+    (1, 300, 8, 64, 2, 64, 64, torch.float32, False),
+    (2, 1000, 4, 64, 1, 128, 256, torch.float32, False),
+    (2, 1024, 24, 64, 1, 128, 256, torch.bfloat16, False),
+    (1, 600, 8, 64, 1, 40, 256, torch.bfloat16, False),
+    (2, 512, 8, 64, 2, 128, 256, torch.bfloat16, True),
+    (1, 600, 8, 64, 1, 40, 256, torch.bfloat16, True),
+    (1, 300, 8, 64, 2, 64, 64, torch.float32, True),
 ]
 # bf16 flash above head dim 128, at the shapes of the configs that will take
 # it, timed: (name, B, S, H, KVH, D), causal
@@ -1078,6 +1105,24 @@ def ssd_worst(got, want):
         worst = max(worst, float(d.max()))
         ratio = max(ratio, float((d / (SSD_TOL + SSD_TOL * w.abs())).max()))
     return worst, ratio
+
+
+def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference over the largest entry, in f32."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def ssd_worst_bf16i(got, want):
+    """``ssd_worst`` for the bf16-intra mode: y_intra within
+    ``INTRA_BF16_TOL`` relative max, the other outputs within SSD_TOL;
+    returns the largest absolute difference, the largest ratio to SSD_TOL
+    of the other outputs, and y_intra's relative max."""
+    check(got[0].dtype == torch.float32 and got[0].shape == want[0].shape, "y_intra shape")
+    check(bool(torch.isfinite(got[0]).all()), "y_intra finite")
+    y_rel = rel_max(got[0], want[0])
+    check(y_rel <= INTRA_BF16_TOL, f"bf16-intra y_intra within {INTRA_BF16_TOL}: {y_rel}")
+    err, ratio = ssd_worst(got[1:], want[1:])
+    return max(err, float((got[0] - want[0]).abs().max())), ratio, y_rel
 
 
 def flash_compare(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -1263,32 +1308,44 @@ def model_kernel_phases(seed: int) -> list:
     check(flash_ok, "flash kernel within FLASH_TOL of its plain version in every case")
     ssd_err = 0.0
     ssd = []
-    for b, S, H, P, G, N, chunk, dtype in SSD_CASES:
+    for b, S, H, P, G, N, chunk, dtype, intra_bf16 in SSD_CASES:
         x, dt, A, Bm, Cm = ssd_inputs(gen, b, S, H, P, G, N, dtype)
         nc = S // chunk    # the whole chunks of a ragged length
         chunk_args = tuple(t[:, :nc * chunk].reshape(b, nc, chunk, *t.shape[2:]).contiguous()
                            for t in (x, dt, Bm, Cm))
         chunk_args = chunk_args[:2] + (A,) + chunk_args[2:]
-        kern = ssd_kernel.route(dtype, chunk, P, N)
-        before = {k.symbol: k.launches for k in ssd_kernel.KERNELS}
-        err, ratio = ssd_worst(ssd_kernel.ssd_chunk_cuda(*chunk_args),
-                               ssd_chunk_ref(*chunk_args))
-        ran = {k.symbol: k.launches - before[k.symbol] for k in ssd_kernel.KERNELS}
+        kern = ssd_kernel.route(dtype, chunk, P, N, intra_bf16)
+        case = [b, S, H, P, G, N, chunk, str(dtype)[6:], intra_bf16]
+        got, ran = launches_of(ssd_kernel.KERNELS, lambda: ssd_kernel.ssd_chunk_cuda(
+            *chunk_args, intra_bf16=intra_bf16))
         check(ran == {k.symbol: int(k is kern) for k in ssd_kernel.KERNELS},
-              f"SSD case {(b, S, H, P, G, N, chunk, dtype)} ran {kern.symbol} only: {ran}")
-        ssd.append({"case": [b, S, H, P, G, N, chunk, str(dtype)[6:]], "kernel": kern.symbol,
-                    "max_abs_err": err, "tol_ratio": ratio})
+              f"SSD case {case} ran {kern.symbol} only: {ran}")
+        want = ssd_chunk_ref(*chunk_args, intra_bf16=intra_bf16)
+        row = {"case": case, "kernel": kern.symbol}
+        if intra_bf16:
+            err, ratio, row["y_intra_rel_max"] = ssd_worst_bf16i(got, want)
+        else:
+            err, ratio = ssd_worst(got, want)
+        row.update(max_abs_err=err, tol_ratio=ratio)
+        ssd.append(row)
         ssd_err = max(ssd_err, err)
-        y, st = ssd_scan_op(x, dt, A, Bm, Cm, chunk=chunk)      # ragged S: padded
-        y_want, st_want = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
-        outs = (st,) if dtype == torch.bfloat16 else (y, st)    # y is bf16 then
-        wants = (st_want,) if dtype == torch.bfloat16 else (y_want, st_want)
+        del got, want
+        y, st = ssd_scan_op(x, dt, A, Bm, Cm, chunk=chunk,      # ragged S: padded
+                            intra_bf16=intra_bf16)
+        y_want, st_want = ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk, intra_bf16=intra_bf16)
+        if dtype == torch.float32 and intra_bf16:
+            row["op_y_rel_max"] = rel_max(y, y_want)
+            check(row["op_y_rel_max"] <= INTRA_BF16_TOL,
+                  f"bf16-intra ssd_scan_op y within {INTRA_BF16_TOL}: {row['op_y_rel_max']}")
+        outs = (st,) if dtype == torch.bfloat16 or intra_bf16 else (y, st)  # bf16 y, or held above
+        wants = (st_want,) if dtype == torch.bfloat16 or intra_bf16 else (y_want, st_want)
         ssd_err = max(ssd_err, ssd_worst(outs, wants)[0])
     torch.cuda.synchronize()
     emit({"phase": "model_kernel_checks", "flash_cases": len(FLASH_CASES),
           "flash_tolerance": {str(k)[6:]: v for k, v in FLASH_TOL.items()},
           "flash": flash, "flash_f32_zamba2_shape": flash_f32, "flash_wide_timed": flash_wide,
-          "ssd_cases": len(SSD_CASES), "ssd_tolerance": SSD_TOL, "ssd": ssd,
+          "ssd_cases": len(SSD_CASES), "ssd_tolerance": SSD_TOL,
+          "ssd_intra_bf16_y_tolerance": INTRA_BF16_TOL, "ssd": ssd,
           "ssd_max_abs_err": ssd_err, "ok": True})
     return wide_rows
 
@@ -1524,7 +1581,150 @@ def zamba2(seed: int) -> list:
     check(flash_compare(flash_out, flash_plain())["ok"],
           "flash output unchanged by the timed launches")
     ssd_worst(ssd_out, ssd_chunk_ref(*ssd_args))
+    del flash_out, ssd_out, q, k, v, qt, kt, vt, ssd_args
+    rows.append(zamba2_intra_bf16(cfg, params, tokens, prefill, kernels))
     return rows
+
+
+def zamba2_intra_bf16(cfg, params, tokens, prefill, kernels: dict) -> dict:
+    """Phase ``zamba2_intra_bf16`` (step 6 above): the ``zamba2`` phase's
+    weights and tokens with ``ssm.intra_bf16``; returns the kernels line's
+    row of the tensor-core bf16-intra launcher."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving import ServeConfig, make_prefill_step
+
+    t_phase = time.perf_counter()
+    cfg_i = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, intra_bf16=True))
+    prefill_i = make_prefill_step(cfg_i, ServeConfig())
+    tc, core = ssd_kernel.SSD_CHUNK_TC_BF16I, ssd_kernel.SSD_CHUNK_BF16I
+    flash = flash_kernel.FLASH_WGMMA
+
+    # the main path, once, counting launches and capturing the first
+    # SSD-chunk inputs
+    captured = []
+    original = ssd_ops.ssd_chunk_cuda
+
+    def capturing(*args, **kwargs):
+        if not captured:
+            captured.append((args, kwargs))
+        return original(*args, **kwargs)
+
+    ssd_ops.ssd_chunk_cuda = capturing
+    try:
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        logits = prefill_i(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+    finally:
+        ssd_ops.ssd_chunk_cuda = original
+    n_inv = cfg.num_layers // cfg.hybrid.shared_block_every
+    expected = {name: 0 for name in launches}
+    expected.update({tc.symbol: cfg.num_layers, flash.symbol: n_inv})
+    check(launches == expected, f"the bf16-intra prefill launches {tc.symbol} "
+          f"{cfg.num_layers} times, {flash.symbol} {n_inv} times, nothing else: {launches}")
+    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
+          f"bf16-intra logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "bf16-intra prefill logits finite")
+    prefill_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = prefill_i(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        del out
+    # the f32-intra prefill of the same weights and tokens: the mode's effect
+    logits_f32i = prefill(params, {"tokens": tokens}).float()
+    logits = logits.float()
+    gap = {"max_abs": float((logits - logits_f32i).abs().max()),
+           "rel_fro": rel_fro(logits, logits_f32i),
+           "f32_intra_logit_max_abs": float(logits_f32i.abs().max())}
+    del logits, logits_f32i
+
+    # the captured per-chunk terms against the plain version
+    args, kwargs = captured[0]
+    check(kwargs.get("intra_bf16") is True, f"the prefill asked for the bf16-intra mode: {kwargs}")
+    want = ssd_chunk_ref(*args, intra_bf16=True)
+    outs = ssd_kernel.ssd_chunk_cuda(*args, intra_bf16=True)
+    err, ratio, y_rel = ssd_worst_bf16i(outs, want)
+    y_mode_gap = rel_max(ssd_chunk_ref(*args)[0], want[0])
+
+    # decode as repro_torch.launch.serve does it, against prefill of the
+    # same prompts
+    prompts = tokens[:, :PROMPT_LEN].contiguous()
+    want_p = prefill_i(params, {"tokens": prompts}).float()
+    dec = generate(cfg_i, params, prompts, INTRA_BF16_NEW_TOKENS)
+    check(bool(torch.isfinite(dec["logits"]).all()), "bf16-intra decode logits finite")
+    dec_gap = float((dec["logits"][:, :PROMPT_LEN].float() - want_p).abs().max())
+    want_max = float(want_p.abs().max())
+    check(dec_gap <= GAP_TOL_BF16 * want_max,
+          f"bf16-intra prefill vs decode logits: gap {dec_gap}, largest logit {want_max}")
+    steps = dec["logits"].shape[1]
+    del dec, want_p
+
+    # timing at the captured shape: the bytes and operations of the f32
+    # row (the same function of the same inputs, rounded elsewhere)
+    b, nc, Q, H, P = args[0].shape
+    N = args[3].shape[4]
+    flops = b * nc * H * (2.0 * (N + P) * Q * (Q + 1) / 2 + 2.0 * P * N * Q)
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + sum(t.numel() * 4 for t in outs))
+    bound_ms, bound_by = bound(flops, nbytes)
+    ms = time_ms(lambda: ssd_kernel.launch(outs, *args, kernel=tc), TIMED_RUNS)
+    plain_ms = time_ms(lambda: ssd_chunk_ref(*args, intra_bf16=True), 5, warmup=1)
+    f32_intra_ms = time_ms(lambda: ssd_kernel.launch(outs, *args, kernel=ssd_kernel.SSD_CHUNK_TC),
+                           TIMED_RUNS)
+    ssd_kernel.launch(outs, *args, kernel=tc)
+    torch.cuda.synchronize()
+    ssd_worst_bf16i(outs, want)      # the timed launches rewrote the outputs
+    # the CUDA-core bf16-intra launcher on the captured inputs, in bf16 and f32
+    core_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cargs = tuple(t.to(dtype) if t.dtype == torch.bfloat16 else t for t in args)
+        couts = tuple(torch.empty_like(t) for t in outs)
+        ssd_kernel.launch(couts, *cargs, kernel=core)
+        cwant = want if dtype == torch.bfloat16 else ssd_chunk_ref(*cargs, intra_bf16=True)
+        cerr, cratio, cy_rel = ssd_worst_bf16i(couts, cwant)
+        cbytes = (sum(t.numel() * t.element_size() for t in cargs)
+                  + sum(t.numel() * 4 for t in couts))
+        core_rows.append({
+            "symbol": core.symbol, "dtype": str(dtype)[6:], "max_abs_err": cerr,
+            "tol_ratio": cratio, "y_intra_rel_max": cy_rel,
+            "ms": time_ms(lambda: ssd_kernel.launch(couts, *cargs, kernel=core), TIMED_RUNS),
+            "plain_ms": time_ms(lambda: ssd_chunk_ref(*cargs, intra_bf16=True), 3, warmup=1),
+            "bytes": cbytes, "bytes_bound_ms": cbytes / HBM_BYTES_PER_S * 1e3,
+            "f32_ops_bound_ms": flops / F32_OPS_PER_S * 1e3})
+        del cargs, couts, cwant
+    torch.cuda.synchronize()
+    emit({"phase": "zamba2_intra_bf16", "arch": ARCH, "ssm": dataclasses.asdict(cfg_i.ssm),
+          "prefill_batch": PREFILL_BATCH, "prefill_len": PREFILL_LEN, "launches": launches,
+          "prefill_first_s": first_s, "prefill_s": min(prefill_s),
+          "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / min(prefill_s),
+          "logits_gap_to_f32_intra": gap, "ssd_captured_max_abs_err": err,
+          "ssd_captured_tol_ratio": ratio, "ssd_captured_y_intra_rel_max": y_rel,
+          "y_intra_tolerance": INTRA_BF16_TOL,
+          "y_intra_gap_to_f32_intra_plain": y_mode_gap, "decode_steps": steps,
+          "new_tokens": INTRA_BF16_NEW_TOKENS, "prefill_decode_gap_bf16": dec_gap,
+          "gap_tol_bf16": GAP_TOL_BF16 * want_max, "ssd_chunk_fwd_tc_ms_same_inputs": f32_intra_ms,
+          "cuda_core": core_rows, "seconds": time.perf_counter() - t_phase, "ok": True})
+    return {"name": "ssd_chunk_intra_bf16", "route": "cuda", "symbol": tc.symbol,
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:50",
+            "mode_of": "src/repro/models/ssm.py:89",
+            "path": "Zamba2-2.7B prefill with ssm.intra_bf16", "launches": launches[tc.symbol],
+            "max_abs_err": err, "y_intra_rel_max": y_rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "library_call": None,
+            "bytes": nbytes, "ops": flops, "f32_ops_bound_ms": flops / F32_OPS_PER_S * 1e3,
+            "tflop_s": flops / ms / 1e9, "gb_s": nbytes / ms / 1e6}
 
 
 def moe_layer_indexed(cfg, p, x):
@@ -2209,11 +2409,6 @@ def deepseek_v2_lite_ep(seed: int) -> list:
 
 def rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
-
-
-def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
-    """The largest difference over the largest entry, in f32."""
-    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
 def kernel_grads(seed: int) -> list:

@@ -8,12 +8,35 @@
 //   y_intra = ((C . B^T) o decay o dt[j]) . x                      (Q x P)
 //   state   = (x o w)^T . B,  w = exp(a_total - cum_a) * dt        (P x N)
 //   y_decay = exp(cum_a)
-// All four outputs are f32, as in ref.ssd_chunk_ref, within 1e-4 (atol and rtol) of it.
-// Two kernels, two launchers; the wrapper (repro_torch/kernels/ssd_scan/kernel.py,
-// `route`) picks one by dtype and shape:
+// All four outputs are f32, as in ref.ssd_chunk_ref, within 1e-4 (atol and rtol) of it
+// (y_intra of the bf16-intra mode within 1e-3 of its largest value, below).
+// Two kernels, each a template on the bf16-intra mode below, four launchers; the wrapper
+// (repro_torch/kernels/ssd_scan/kernel.py, `route`) picks one by dtype, shape and mode:
 //
 //   bf16, Q, P, N multiples of 16, N <= 128, within shared memory  ssd_chunk_tc_kernel
 //   f32, and any other bf16 shape                                  ssd_chunk_kernel
+//
+// launched by ssd_chunk_fwd_tc and ssd_chunk_fwd, or in the bf16-intra mode by
+// ssd_chunk_fwd_tc_bf16i and ssd_chunk_fwd_bf16i.
+//
+// --- bf16 intra (the *_bf16i launchers) ----------------------------------------------
+// The mode of repro.models.ssm.ssd_chunked(..., intra_bf16=True) (src/repro/models/ssm.py:
+// 89-96), which the Pallas kernel lacks and the JAX model computes in jnp: the
+// intra-chunk tensors are bf16, rounded at each step of
+//   y_intra = sum_j bf16(bf16(bf16(C_i . B_j) * bf16(decay_ij)) * bf16(dt_j)) * bf16(x_j)
+// with C, B rounded to bf16 before their f32 sum, and the last sum in f32. states,
+// a_total and y_decay are f32 as in the other mode. The rounded score is one bf16 A
+// fragment, so the tensor-core kernel multiplies it with x once (no lo part); the
+// states keep their split (f32 in JAX too). The CUDA-core kernel rounds the same way
+// in scalar code, C, B and x rounded as they are staged (f32 inputs; JAX rounds them).
+// Each decay takes the direct form exp(cum_i - cum_j) with expf, as the plain version's
+// torch.exp does on the card, and cum_a is summed in f64 and rounded once, as the plain
+// version sums it: both then give the same f32 decay, so that its rounding to bf16
+// agrees. A bf16 rounding can still flip where the two f32 values before it differ: the
+// f32 sums of C . B^T, taken in another order than the plain version's, and exp where
+// the plain version's differs from expf (on the CPU). A flip moves one score by one bf16
+// step (2^-8 of it); y_intra is held within 1e-3 of its largest value
+// (tests/test_torch_ssd_intra_bf16.py states it), the other outputs within 1e-4.
 //
 // Bound: at Zamba2-2.7B's prefill shape (b 4, Q 256, 16 chunks, H 80, P 64, N 64, G 1)
 // a call moves 0.60 GB: the f32 y_intra (335 MB) and states (84 MB), x in bf16 (168 MB);
@@ -85,6 +108,7 @@
 // Python wrapper checks every argument before it calls.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -97,9 +121,41 @@ constexpr int kLD = kT + 4;     // padded pitch in floats, keeps float4 alignmen
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// dst[r][c] = src[r * stride + col0 + c] (times row_scale[r] if given) for
-// r < rows, c < cols; zero elsewhere in the 64 x 64 tile.
-template <typename T>
+// v rounded to bf16 (to nearest, ties to even), widened back
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The bf16-intra score: bf16(bf16(bf16(s) * bf16(decay)) * bf16(dt)). Each product of
+// two bf16 values is exact in f32, so each rounding is the one bf16 arithmetic makes.
+__device__ __forceinline__ float intra_bf16_score(float s, float decay, float dt) {
+  return round_bf16(round_bf16(round_bf16(s) * round_bf16(decay)) * round_bf16(dt));
+}
+
+// cum[i] = sum_{k <= i} dts[k] * a_h, by one warp's shuffle scan, in f32, or (kF64) in
+// f64 and rounded once: the plain version's sums.
+template <bool kF64>
+__device__ __forceinline__ void warp_cumsum(const float* dts, float a_h, float* cum, int Q,
+                                            int lane) {
+  using Acc = std::conditional_t<kF64, double, float>;
+  Acc carry = 0;
+  for (int base = 0; base < Q; base += 32) {
+    const int i = base + lane;
+    Acc v = i < Q ? static_cast<Acc>(dts[i] * a_h) : Acc(0);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const Acc u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    v += carry;
+    if (i < Q) cum[i] = static_cast<float>(v);
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// dst[r][c] = src[r * stride + col0 + c] (times row_scale[r] if given; rounded to bf16
+// first if kRound) for r < rows, c < cols; zero elsewhere in the 64 x 64 tile.
+template <bool kRound = false, typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, long long stride, int rows,
                                           int col0, int cols, const float* row_scale) {
   for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
@@ -107,19 +163,25 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, long long st
     float v = 0.f;
     if (r < rows && c < cols) {
       v = to_f32(src[r * stride + col0 + c]);
+      if (kRound) v = round_bf16(v);
       if (row_scale != nullptr) v *= row_scale[r];
     }
     dst[r * kLD + c] = v;
   }
 }
 
-// The transpose: dst[c][r] = src[r * stride + col0 + c].
-template <typename T>
+// The transpose: dst[c][r] = src[r * stride + col0 + c] (rounded to bf16 if kRound).
+template <bool kRound, typename T>
 __device__ __forceinline__ void load_cols(float* dst, const T* src, long long stride, int rows,
                                           int col0, int cols) {
   for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
     const int r = e >> 6, c = e & (kT - 1);
-    dst[c * kLD + r] = (r < rows && c < cols) ? to_f32(src[r * stride + col0 + c]) : 0.f;
+    float v = 0.f;
+    if (r < rows && c < cols) {
+      v = to_f32(src[r * stride + col0 + c]);
+      if (kRound) v = round_bf16(v);
+    }
+    dst[c * kLD + r] = v;
   }
 }
 
@@ -139,7 +201,7 @@ __device__ __forceinline__ void product(float (&acc)[4][4], const float* A, cons
   }
 }
 
-template <typename T>
+template <typename T, bool kIntraBf16>
 __global__ void __launch_bounds__(kThreads)
 ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const T* __restrict__ Bg,
@@ -168,22 +230,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   // 1. cum_a by one warp's shuffle scan; a_total, y_decay and w
   for (int i = tid; i < Q; i += kThreads) dts[i] = dt[(row0 + i) * H + h];
   __syncthreads();
-  if (tid < 32) {
-    const float a_h = A[h];
-    float carry = 0.f;
-    for (int base = 0; base < Q; base += 32) {
-      const int i = base + lane;
-      float v = i < Q ? dts[i] * a_h : 0.f;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += u;
-      }
-      v += carry;
-      if (i < Q) cum[i] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
-  }
+  if (tid < 32) warp_cumsum<kIntraBf16>(dts, A[h], cum, Q, lane);
   __syncthreads();
   const float total = cum[Q - 1];
   if (tid == 0) a_total[chunk * H + h] = total;
@@ -203,8 +250,8 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         float s[4][4] = {};
         for (int n0 = 0; n0 < N; n0 += kT) {
           __syncthreads();
-          load_cols(tA, Cb + i0 * bc_stride, bc_stride, Q - i0, n0, N - n0);
-          load_cols(tB, Bb + j0 * bc_stride, bc_stride, Q - j0, n0, N - n0);
+          load_cols<kIntraBf16>(tA, Cb + i0 * bc_stride, bc_stride, Q - i0, n0, N - n0);
+          load_cols<kIntraBf16>(tB, Bb + j0 * bc_stride, bc_stride, Q - j0, n0, N - n0);
           __syncthreads();
           product(s, tA, tB, min(kT, N - n0), ty, tx);
         }
@@ -214,13 +261,16 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = i0 + 4 * ty + a, j = j0 + 4 * tx + e;
-            const float v = (i < Q && j < Q && i >= j)
-                                ? s[a][e] * expf(cum[i] - cum[j]) * dts[j]
-                                : 0.f;
+            float v = 0.f;
+            if (i < Q && j < Q && i >= j) {
+              const float decay = expf(cum[i] - cum[j]);
+              v = kIntraBf16 ? intra_bf16_score(s[a][e], decay, dts[j])
+                             : s[a][e] * decay * dts[j];
+            }
             tS[(4 * tx + e) * kLD + 4 * ty + a] = v;  // stored [j][i]
           }
-        load_rows(tX, xb + j0 * x_stride, x_stride, Q - j0, p0, P - p0,
-                  static_cast<const float*>(nullptr));
+        load_rows<kIntraBf16>(tX, xb + j0 * x_stride, x_stride, Q - j0, p0, P - p0,
+                              static_cast<const float*>(nullptr));
         __syncthreads();
         product(acc, tS, tX, kT, ty, tx);
       }
@@ -259,16 +309,17 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
+template <typename T, bool kIntraBf16>
 int launch(const void* x, const void* dt, const void* A, const void* B, const void* C, void* y,
            void* states, void* a_total, void* y_decay, int b, int nc, int Q, int H, int P, int G,
            int N, cudaStream_t stream) {
   const size_t smem = (4 * kT * kLD + 3 * static_cast<size_t>(Q)) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t err =
+      cudaFuncSetAttribute(ssd_chunk_kernel<T, kIntraBf16>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(H, nc, b);
-  ssd_chunk_kernel<T><<<grid, kThreads, smem, stream>>>(
+  ssd_chunk_kernel<T, kIntraBf16><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(B), static_cast<const T*>(C), static_cast<float*>(y),
       static_cast<float*>(states), static_cast<float*>(a_total), static_cast<float*>(y_decay),
@@ -401,8 +452,10 @@ __device__ __forceinline__ void stage_x(bf16* dst, const bf16* src, long long x_
 //   R_i = exp(cum_i - cum_i0)  (per row tile),  E = exp(cum_i0 - cum_je)  (per tile pair),
 //   cc_j = exp(cum_je - cum_j) dt_j  (per head, in shared memory),  je = j0 + 15,
 // one exponential a tile pair where the direct form takes eight a thread. The diagonal
-// tile takes the direct form, masked before the exp.
-template <int N>
+// tile takes the direct form, masked before the exp. In the bf16-intra mode every tile
+// takes the direct form (the plain version's decay, then rounded) and the rounded score
+// is one bf16 fragment.
+template <int N, bool kIntraBf16>
 __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const bf16* sX,
                                            const float* cum, const float* dts, const float* cc,
                                            float* yb, long long y_stride, int Q, int P) {
@@ -451,9 +504,24 @@ __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[n][e] = s_next[n][e];
         if (jt < it) c_bt(j0 + 16, s_next);
-        // weight by decay and dt[j]; split into hi/lo
+        // weight by decay and dt[j]; split into hi/lo (bf16 intra: rounded into hi)
         uint32_t hi[4], lo[4];
-        if (kProbe & 8) {
+        if constexpr (kIntraBf16) {
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb) {
+            const int j = j0 + nb * 8 + 2 * tq;
+            const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+            const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+            const float v0 = ra >= j ? intra_bf16_score(s[nb][0], expf(cum_a - cj.x), dj.x) : 0.f;
+            const float v1 =
+                ra >= j + 1 ? intra_bf16_score(s[nb][1], expf(cum_a - cj.y), dj.y) : 0.f;
+            const float v2 = rb >= j ? intra_bf16_score(s[nb][2], expf(cum_b - cj.x), dj.x) : 0.f;
+            const float v3 =
+                rb >= j + 1 ? intra_bf16_score(s[nb][3], expf(cum_b - cj.y), dj.y) : 0.f;
+            hi[2 * nb] = bits(__floats2bfloat162_rn(v0, v1));  // exact: already bf16
+            hi[2 * nb + 1] = bits(__floats2bfloat162_rn(v2, v3));
+          }
+        } else if (kProbe & 8) {
 #pragma unroll
           for (int nb = 0; nb < 2; ++nb) {
             split2(s[nb][0], s[nb][1], hi[2 * nb], lo[2 * nb]);
@@ -491,9 +559,11 @@ __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const
                                       p0 + pn * 16 + (lane >> 4) * 8),
                             b);
           mma_bf16(acc[2 * pn], hi, b[0], b[1]);
-          mma_bf16(acc[2 * pn], lo, b[0], b[1]);
           mma_bf16(acc[2 * pn + 1], hi, b[2], b[3]);
-          mma_bf16(acc[2 * pn + 1], lo, b[2], b[3]);
+          if constexpr (!kIntraBf16) {
+            mma_bf16(acc[2 * pn], lo, b[0], b[1]);
+            mma_bf16(acc[2 * pn + 1], lo, b[2], b[3]);
+          }
         }
       }
 #pragma unroll
@@ -560,7 +630,7 @@ __device__ __forceinline__ void tc_states(const bf16* sB, const bf16* sX, const 
   }
 }
 
-template <int N>
+template <int N, bool kIntraBf16>
 __global__ void __launch_bounds__(kTcGroupThreads * tc_groups<N>(), 1)
 ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const bf16* __restrict__ Bg,
@@ -620,20 +690,7 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     const int h = h0 + warp;
     const float* dts = sDt + warp * Q;
     float* cum = sCum + warp * Q;
-    const float a_h = A[h];
-    float carry = 0.f;
-    for (int base = 0; base < Q; base += 32) {
-      const int i = base + lane;
-      float v = i < Q ? dts[i] * a_h : 0.f;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += u;
-      }
-      v += carry;
-      if (i < Q) cum[i] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
+    warp_cumsum<kIntraBf16>(dts, A[h], cum, Q, lane);
     __syncwarp();
     const float total = cum[Q - 1];
     if (lane == 0) a_total[chunk * H + h] = total;
@@ -662,7 +719,7 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     }
     const int h = h0 + hl;
     if (!(kProbe & 1))
-      tc_y_intra<N>(sC, sB, sX, sCum + hl * Q, sDt + hl * Q, sCC + hl * Q,
+      tc_y_intra<N, kIntraBf16>(sC, sB, sX, sCum + hl * Q, sDt + hl * Q, sCC + hl * Q,
                     y + row0 * x_stride + static_cast<long long>(h) * P, x_stride, Q, P);
     if (!(kProbe & 2))
       tc_states<N>(sB, sX, sW + hl * Q,
@@ -675,23 +732,54 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <int N>
+template <int N, bool kIntraBf16>
 int launch_tc(const void* x, const void* dt, const void* A, const void* B, const void* C,
               void* y, void* states, void* a_total, void* y_decay, int b, int nc, int Q, int H,
               int P, int G, cudaStream_t stream) {
   const int heads = tc_heads(Q, P, N);
   const size_t smem = tc_smem_bytes(Q, P, N, heads);
-  const cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_tc_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t err =
+      cudaFuncSetAttribute(ssd_chunk_tc_kernel<N, kIntraBf16>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int head_blocks = (H / G + heads - 1) / heads;
   const dim3 grid(head_blocks * G, nc, b);
-  ssd_chunk_tc_kernel<N><<<grid, kTcGroupThreads * tc_groups<N>(), smem, stream>>>(
+  ssd_chunk_tc_kernel<N, kIntraBf16><<<grid, kTcGroupThreads * tc_groups<N>(), smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(B), static_cast<const bf16*>(C), static_cast<float*>(y),
       static_cast<float*>(states), static_cast<float*>(a_total), static_cast<float*>(y_decay),
       nc, Q, H, P, G, heads, head_blocks);
   return cudaGetLastError();
+}
+
+template <bool kIntraBf16>
+int fwd(const void* x, const void* dt, const void* A, const void* B, const void* C, void* y,
+        void* states, void* a_total, void* y_decay, int b, int nc, int Q, int H, int P, int G,
+        int N, int in_bf16, cudaStream_t stream) {
+  if (in_bf16)
+    return launch<__nv_bfloat16, kIntraBf16>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc,
+                                             Q, H, P, G, N, stream);
+  return launch<float, kIntraBf16>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P,
+                                   G, N, stream);
+}
+
+template <bool kIntraBf16>
+int fwd_tc(const void* x, const void* dt, const void* A, const void* B, const void* C, void* y,
+           void* states, void* a_total, void* y_decay, int b, int nc, int Q, int H, int P, int G,
+           int N, cudaStream_t stream) {
+  if (Q % 16 || P % 16 || tc_heads(Q, P, N) == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (N) {
+#define SSD_TC_CASE(n)                                                                          \
+  case n:                                                                                       \
+    return launch_tc<n, kIntraBf16>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, \
+                                    G, stream);
+    SSD_TC_CASE(16) SSD_TC_CASE(32) SSD_TC_CASE(48) SSD_TC_CASE(64)
+    SSD_TC_CASE(80) SSD_TC_CASE(96) SSD_TC_CASE(112) SSD_TC_CASE(128)
+#undef SSD_TC_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -704,11 +792,17 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A, const
                              const void* C, void* y, void* states, void* a_total, void* y_decay,
                              int b, int nc, int Q, int H, int P, int G, int N, int in_bf16,
                              cudaStream_t stream) {
-  if (in_bf16)
-    return launch<__nv_bfloat16>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G,
-                                 N, stream);
-  return launch<float>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G, N,
-                       stream);
+  return fwd<false>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G, N, in_bf16,
+                    stream);
+}
+
+// ssd_chunk_fwd in the bf16-intra mode.
+extern "C" int ssd_chunk_fwd_bf16i(const void* x, const void* dt, const void* A, const void* B,
+                                   const void* C, void* y, void* states, void* a_total,
+                                   void* y_decay, int b, int nc, int Q, int H, int P, int G,
+                                   int N, int in_bf16, cudaStream_t stream) {
+  return fwd<true>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G, N, in_bf16,
+                   stream);
 }
 
 // x (b, nc, Q, H, P) and B, C (b, nc, Q, G, N) in bf16, 16-byte aligned; dt (b, nc, Q,
@@ -719,16 +813,13 @@ extern "C" int ssd_chunk_fwd_tc(const void* x, const void* dt, const void* A, co
                                 const void* C, void* y, void* states, void* a_total,
                                 void* y_decay, int b, int nc, int Q, int H, int P, int G, int N,
                                 cudaStream_t stream) {
-  if (Q % 16 || P % 16 || tc_heads(Q, P, N) == 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (N) {
-#define SSD_TC_CASE(n) \
-  case n:              \
-    return launch_tc<n>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G, stream);
-    SSD_TC_CASE(16) SSD_TC_CASE(32) SSD_TC_CASE(48) SSD_TC_CASE(64)
-    SSD_TC_CASE(80) SSD_TC_CASE(96) SSD_TC_CASE(112) SSD_TC_CASE(128)
-#undef SSD_TC_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return fwd_tc<false>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G, N, stream);
+}
+
+// ssd_chunk_fwd_tc in the bf16-intra mode.
+extern "C" int ssd_chunk_fwd_tc_bf16i(const void* x, const void* dt, const void* A,
+                                      const void* B, const void* C, void* y, void* states,
+                                      void* a_total, void* y_decay, int b, int nc, int Q, int H,
+                                      int P, int G, int N, cudaStream_t stream) {
+  return fwd_tc<true>(x, dt, A, B, C, y, states, a_total, y_decay, b, nc, Q, H, P, G, N, stream);
 }

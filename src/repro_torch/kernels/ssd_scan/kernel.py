@@ -1,8 +1,8 @@
 """CUDA kernels for the SSD chunk, the port of
 ``repro.kernels.ssd_scan.kernel.ssd_chunk_pallas``.
 
-``csrc/ssd_chunk.cu`` holds two kernels, one launcher each; the dtype and
-shape pick one (``route``):
+``csrc/ssd_chunk.cu`` holds two kernels; the dtype and shape pick one
+(``route``):
 
 - bf16 with Q, P and N multiples of 16, N at most 128 and the shared
   memory of a block of one head within the card's 227 KB:
@@ -17,6 +17,13 @@ shape pick one (``route``):
 Both compute the four outputs of ``ref.ssd_chunk_ref`` in f32. B and C
 are read through the group index ``h // (H // G)`` from their (b, nc, Q,
 G, N) layout; no repeat to H heads is made. dt and A are f32.
+
+Each kernel has a second launcher for the bf16-intra mode
+(``ssd_chunk_ref(..., intra_bf16=True)``, the mode of the JAX package's
+``ssd_chunked(..., intra_bf16=True)``): ``ssd_chunk_fwd_tc_bf16i`` and
+``ssd_chunk_fwd_bf16i``, routed by the same dtype and shape rules. The
+intra-chunk scores are rounded to bf16 at each step, and the tensor-core
+kernel multiplies them with x once, without the lo part.
 """
 
 from __future__ import annotations
@@ -46,7 +53,11 @@ SMEM_MAX = 232448
 _ARGS = [_build.P] * 9 + [_build.I32] * 7
 SSD_CHUNK_TC = _build.Kernel("ssd_chunk", "ssd_chunk_fwd_tc", _ARGS)
 SSD_CHUNK = _build.Kernel("ssd_chunk", "ssd_chunk_fwd", _ARGS + [_build.I32])
-KERNELS = (SSD_CHUNK_TC, SSD_CHUNK)
+SSD_CHUNK_TC_BF16I = _build.Kernel("ssd_chunk", "ssd_chunk_fwd_tc_bf16i", _ARGS)
+SSD_CHUNK_BF16I = _build.Kernel("ssd_chunk", "ssd_chunk_fwd_bf16i", _ARGS + [_build.I32])
+KERNELS = (SSD_CHUNK_TC, SSD_CHUNK, SSD_CHUNK_TC_BF16I, SSD_CHUNK_BF16I)
+#: the CUDA-core launchers, which take x's dtype as their last argument
+_CORE = (SSD_CHUNK, SSD_CHUNK_BF16I)
 
 
 def tc_smem_bytes(Q: int, P: int, N: int, heads: int) -> int:
@@ -65,36 +76,38 @@ def tc_heads(Q: int, P: int, N: int) -> int:
     return heads
 
 
-def route(dtype: torch.dtype, Q: int, P: int, N: int) -> _build.Kernel:
+def route(dtype: torch.dtype, Q: int, P: int, N: int,
+          intra_bf16: bool = False) -> _build.Kernel:
     """The kernel that serves x, B and C of this dtype and a chunk of Q
-    rows, head dim P and state width N."""
+    rows, head dim P and state width N, in the bf16-intra mode or not."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"no SSD chunk kernel takes {dtype}")
     if (dtype == torch.bfloat16 and Q % 16 == 0 and P % 16 == 0 and N % 16 == 0
             and N <= TC_MAX_N and tc_heads(Q, P, N)):
-        return SSD_CHUNK_TC
-    return SSD_CHUNK
+        return SSD_CHUNK_TC_BF16I if intra_bf16 else SSD_CHUNK_TC
+    return SSD_CHUNK_BF16I if intra_bf16 else SSD_CHUNK
 
 
-def launch(outs, xq, dtq, A, Bq, Cq, kernel=None) -> None:
+def launch(outs, xq, dtq, A, Bq, Cq, kernel=None, intra_bf16: bool = False) -> None:
     """Launch ``kernel`` (default: the routed one) into ``outs`` =
     (y_intra, states, a_total, y_decay) without checks: only for tensors
     that ``ssd_chunk_cuda`` has accepted."""
     b, nc, Q, H, P = xq.shape
     G, N = Bq.shape[3], Bq.shape[4]
-    kernel = route(xq.dtype, Q, P, N) if kernel is None else kernel
+    kernel = route(xq.dtype, Q, P, N, intra_bf16) if kernel is None else kernel
     args = [xq.data_ptr(), dtq.data_ptr(), A.data_ptr(), Bq.data_ptr(),
             Cq.data_ptr(), *(t.data_ptr() for t in outs), b, nc, Q, H, P, G, N]
-    if kernel is SSD_CHUNK:
+    if kernel in _CORE:
         args.append(int(xq.dtype == torch.bfloat16))
     kernel(xq.device, *args)
 
 
 def ssd_chunk_cuda(xq: torch.Tensor, dtq: torch.Tensor, A: torch.Tensor,
-                   Bq: torch.Tensor, Cq: torch.Tensor
+                   Bq: torch.Tensor, Cq: torch.Tensor, intra_bf16: bool = False
                    ) -> Tuple[torch.Tensor, ...]:
     """xq (b,nc,Q,H,P); dtq (b,nc,Q,H) f32; A (H,) f32; Bq/Cq
-    (b,nc,Q,G,N) -> (y_intra, states, a_total, y_decay), all f32."""
+    (b,nc,Q,G,N) -> (y_intra, states, a_total, y_decay), all f32;
+    ``intra_bf16`` takes the bf16-intra launcher of the routed kernel."""
     check_ssd_chunk(xq, dtq, A, Bq, Cq, KERNEL_DTYPES)
     require_cuda(xq=xq, dtq=dtq, A=A, Bq=Bq, Cq=Cq)
     b, nc, Q, H, P = xq.shape
@@ -103,7 +116,7 @@ def ssd_chunk_cuda(xq: torch.Tensor, dtq: torch.Tensor, A: torch.Tensor,
                          f"at most {MAX_CHUNK} rows and at most "
                          f"{GRID_YZ_MAX} chunks and batch rows")
     N = Bq.shape[4]
-    if (route(xq.dtype, Q, P, N) is SSD_CHUNK_TC
+    if (route(xq.dtype, Q, P, N, intra_bf16) not in _CORE
             and any(t.data_ptr() % 16 for t in (xq, Bq, Cq))):
         raise ValueError("xq, Bq and Cq must start on 16-byte boundaries "
                          "(the kernel copies rows in 16-byte pieces)")
@@ -112,5 +125,5 @@ def ssd_chunk_cuda(xq: torch.Tensor, dtq: torch.Tensor, A: torch.Tensor,
             torch.empty((b, nc, H, P, N), **f32),
             torch.empty((b, nc, H), **f32),
             torch.empty((b, nc, Q, H), **f32))
-    launch(outs, xq, dtq, A, Bq, Cq)
+    launch(outs, xq, dtq, A, Bq, Cq, intra_bf16=intra_bf16)
     return outs

@@ -11,6 +11,11 @@ The per-chunk terms are differentiable (``SSDChunk``): the JAX package's
 gradient of the SSD is autodiff of its jnp chunked scan, so the backward
 here is autograd of the plain per-chunk terms, recomputed from the saved
 inputs. The recurrence and ``y_inter`` are plain torch already.
+
+``intra_bf16`` holds the intra-chunk tensors in bf16 as
+``repro.models.ssm.ssd_chunked(..., intra_bf16=True)`` does: the kernel's
+bf16-intra launchers on CUDA tensors, ``ssd_chunk_ref(...,
+intra_bf16=True)`` in the plain path and in the backward.
 """
 
 from __future__ import annotations
@@ -26,21 +31,22 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 PLAIN_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def chunk_terms(xq, dtq, A, Bq, Cq):
+def chunk_terms(xq, dtq, A, Bq, Cq, intra_bf16: bool = False):
     """The per-chunk terms where their tensors lie, outside autograd."""
     if xq.is_cuda:
-        return ssd_chunk_cuda(xq, dtq, A, Bq, Cq)
+        return ssd_chunk_cuda(xq, dtq, A, Bq, Cq, intra_bf16=intra_bf16)
     check_ssd_chunk(xq, dtq, A, Bq, Cq, PLAIN_DTYPES)
-    return ssd_chunk_ref(xq, dtq, A, Bq, Cq)
+    return ssd_chunk_ref(xq, dtq, A, Bq, Cq, intra_bf16)
 
 
 class SSDChunk(torch.autograd.Function):
     """``chunk_terms`` with autograd of ``ssd_chunk_ref`` as its backward."""
 
     @staticmethod
-    def forward(ctx, xq, dtq, A, Bq, Cq):
-        out = chunk_terms(xq, dtq, A, Bq, Cq)
+    def forward(ctx, xq, dtq, A, Bq, Cq, intra_bf16=False):
+        out = chunk_terms(xq, dtq, A, Bq, Cq, intra_bf16)
         ctx.save_for_backward(xq, dtq, A, Bq, Cq)
+        ctx.intra_bf16 = intra_bf16
         ctx.set_materialize_grads(False)
         return out
 
@@ -50,17 +56,18 @@ class SSDChunk(torch.autograd.Function):
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
-            outs = ssd_chunk_ref(*inputs)
+            outs = ssd_chunk_ref(*inputs, ctx.intra_bf16)
         pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        flag = (None,) * (len(ctx.needs_input_grad) - len(inputs))   # intra_bf16, if given
         if not wanted or not pairs:
-            return (None,) * len(inputs)
+            return (None,) * len(inputs) + flag
         got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
                                        [g for _, g in pairs], allow_unused=True))
-        return tuple(next(got) if t.requires_grad else None for t in inputs)
+        return tuple(next(got) if t.requires_grad else None for t in inputs) + flag
 
 
-def _per_chunk(xq, dtq, A, Bq, Cq):
-    return SSDChunk.apply(xq, dtq, A, Bq, Cq)
+def _per_chunk(xq, dtq, A, Bq, Cq, intra_bf16):
+    return SSDChunk.apply(xq, dtq, A, Bq, Cq, intra_bf16)
 
 
 def _check_inputs(x, dt, A, B, C, chunk) -> None:
@@ -82,7 +89,8 @@ def _check_inputs(x, dt, A, B, C, chunk) -> None:
         raise ValueError(f"chunk must be an int >= 1, got {chunk!r}")
 
 
-def _chunked(x, dt, A, B, C, chunk, per_chunk, initial_state=None):
+def _chunked(x, dt, A, B, C, chunk, per_chunk, initial_state=None,
+             intra_bf16=False):
     _check_inputs(x, dt, A, B, C, chunk)
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
@@ -99,7 +107,7 @@ def _chunked(x, dt, A, B, C, chunk, per_chunk, initial_state=None):
     Bq = B.reshape(b, nc, chunk, G, N)
     Cq = C.reshape(b, nc, chunk, G, N)
     y_intra, states, a_total, y_decay = per_chunk(
-        xq, dtq, A.float().contiguous(), Bq, Cq)
+        xq, dtq, A.float().contiguous(), Bq, Cq, intra_bf16)
 
     # inter-chunk recurrence, in the order of the JAX package's scan
     state = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
@@ -117,16 +125,19 @@ def _chunked(x, dt, A, B, C, chunk, per_chunk, initial_state=None):
     return y.to(x.dtype), state
 
 
-def ssd_scan_op(x, dt, A, B, C, *, chunk: int = 256):
+def ssd_scan_op(x, dt, A, B, C, *, chunk: int = 256, intra_bf16: bool = False):
     """Chunked SSD: x (b,S,H,P); dt (b,S,H); A (H,); B, C (b,S,G,N).
 
     Returns (y (b,S,H,P) in x's dtype, final_state (b,H,P,N) f32), the
-    contract of ``repro.models.ssm.ssd_chunked``.
+    contract of ``repro.models.ssm.ssd_chunked``, ``intra_bf16`` included
+    (the JAX package's Pallas op has no such mode; its model then takes
+    the jnp ``ssd_chunked``, whose twin this is).
     """
-    return _chunked(x, dt, A, B, C, chunk, _per_chunk)
+    return _chunked(x, dt, A, B, C, chunk, _per_chunk, intra_bf16=intra_bf16)
 
 
-def ssd_chunked(x, dt, A, B, C, *, chunk: int = 256, initial_state=None):
+def ssd_chunked(x, dt, A, B, C, *, chunk: int = 256, initial_state=None,
+                intra_bf16: bool = False):
     """``ssd_scan_op`` with the plain per-chunk terms on every device,
     and an optional initial state (b, H, P, N)."""
-    return _chunked(x, dt, A, B, C, chunk, ssd_chunk_ref, initial_state)
+    return _chunked(x, dt, A, B, C, chunk, ssd_chunk_ref, initial_state, intra_bf16)

@@ -5,9 +5,10 @@ The config dataclasses keep the JAX package's fields and defaults; dtypes
 are torch dtypes. Two fields are left out: ``flash_q_chunk`` and
 ``flash_kv_chunk``, the Pallas kernel's tile sizes, which the CUDA kernel
 does not take (its tiles are fixed at 64 rows). ``SSMConfig.intra_bf16``
-is kept for the configs, and ``repro_torch.models.lm`` refuses it when
-set, since the port computes the SSD chunk in f32 only. ``ArraySpec`` declares one parameter or cache array
-(shape, dtype, logical axes, init scheme) as in the JAX package.
+holds the SSD chunk's intra-chunk tensors in bf16, as in the JAX package
+(``repro_torch.kernels.ssd_scan``). ``ArraySpec`` declares one parameter
+or cache array (shape, dtype, logical axes, init scheme) as in the JAX
+package.
 ``fill_`` draws the distributions of the JAX ``ArraySpec.materialize``
 from an explicit ``torch.Generator``: a fan-in scaled normal whose
 fan-in excludes the ``layers``/``experts``/``stack`` axes, ``small``

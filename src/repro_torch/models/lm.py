@@ -51,10 +51,10 @@ of ``aten.mm`` and ``aten.bmm``, the twin of ``checkpoint_dots``).
 What the port does not run
 raises ``ValueError`` naming it: a MoE layer or MLA outside the
 ``decoder`` and ``encoder`` kinds, which the JAX package's ``ssm`` and
-``hybrid`` kinds have no cache or layer for; a multimodal kind other than ``audio`` and
-``vision``, which have no frontend; and ``ssm.intra_bf16``: the JAX
-package then holds the intra-chunk tensors in bf16, and the port's SSD
-chunk computes in f32 only.
+``hybrid`` kinds have no cache or layer for; and a multimodal kind other
+than ``audio`` and ``vision``, which have no frontend. ``ssm.intra_bf16``
+runs: the SSD chunk then holds its intra-chunk tensors in bf16, as the
+JAX package's ``ssd_chunked`` does.
 """
 
 from __future__ import annotations
@@ -97,7 +97,6 @@ def _check_kind(cfg: ModelConfig) -> None:
          cfg.moe is not None and cfg.kind not in BLOCK_KINDS),
         ("mla outside the decoder and encoder kinds",
          cfg.mla is not None and cfg.kind not in BLOCK_KINDS),
-        ("ssm.intra_bf16", cfg.ssm is not None and cfg.ssm.intra_bf16),
         (f"multimodal kind {getattr(mm, 'kind', None)!r}",
          mm is not None and mm.kind not in FRONTENDS)) if on]
     if unsupported:

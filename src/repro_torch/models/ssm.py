@@ -126,7 +126,7 @@ def mamba2_apply(cfg: ModelConfig, p: Mamba2, x: torch.Tensor) -> torch.Tensor:
     Cm = xBC[..., d_inner + gn:].reshape(b, S, s.ngroups, s.d_state)
     dt = F.softplus(dt.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
-    y, _ = ssd_scan_op(xs, dt, A, Bm, Cm, chunk=s.chunk)
+    y, _ = ssd_scan_op(xs, dt, A, Bm, Cm, chunk=s.chunk, intra_bf16=s.intra_bf16)
     y = y + p.D[None, None, :, None] * xs.float()
     y = y.reshape(b, S, d_inner).to(cd)
     y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)

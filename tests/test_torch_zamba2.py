@@ -206,13 +206,20 @@ def test_what_the_port_does_not_run_raises_naming_it(field, value):
             call()
 
 
-def test_intra_bf16_raises_naming_it():
+def test_intra_bf16_runs_in_lm_cache_defs_and_forward():
+    # the three calls that refused ssm.intra_bf16 before the SSD chunk had
+    # the mode; tests/test_torch_ssd_intra_bf16.py holds its values to JAX's
     cfg = get_config("mamba2-130m", smoke=True)
     cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, intra_bf16=True))
-    for call in (lambda: lm.LM(cfg, device="meta"), lambda: lm.cache_defs(cfg, 1, 4),
-                 lambda: lm.forward(cfg, None, {})):
-        with pytest.raises(ValueError, match="intra_bf16"):
-            call()
+    meta = lm.LM(cfg, device="meta")
+    assert sum(p.numel() for p in meta.parameters()) == cfg.param_count()
+    defs = lm.cache_defs(cfg, 1, 4)
+    assert defs == lm.cache_defs(dataclasses.replace(cfg, ssm=get_config(
+        "mamba2-130m", smoke=True).ssm), 1, 4)
+    model = init_params(lm.LM(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    logits, aux = lm.forward(cfg, model, {"tokens": torch.zeros((1, 40), dtype=torch.int32)})
+    assert logits.shape == (1, 40, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert float(aux) == 0.0
 
 
 def test_entry_points_default_to_the_card_and_draw_from_a_generator():
