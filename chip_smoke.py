@@ -34,7 +34,14 @@
    launched. Prints the worst difference, the gradients' errors and both
    wall times (one card runs the stages in turn: a report, no speedup).
    The process-group pipeline differentiates too; it is held over gloo
-   in the tests only, as NCCL refuses two ranks on one card.
+   in the tests only, as NCCL refuses two ranks on one card. Then
+   ``dryrun_plan``: the dry run's twin (``repro_torch.launch.dryrun``)
+   plans every cell of ``all_cells()`` on both production meshes (data 16
+   x model 16, pod 2 x data 16 x model 16), 31 a mesh, in this process on
+   the host (no kernel, no module of JAX); ``dryrun.HBM_PER_CHIP`` must be
+   the card's ``total_memory``. Prints each cell's argument GB a device
+   (the sharding plan's bytes, not a measurement), the cells over the
+   card and the seconds.
 4. Blob data plane: holds each blob kernel against its plain PyTorch
    version on the card, bit for bit, over payload dtypes, overflow,
    empty bins, ragged tiles and two rows-per-block values; then runs the
@@ -194,8 +201,11 @@
    losses and gradient norms, the last loss below the first, 12 flash,
    12 pack and 12 unpack launches a step and no other kernel
    (``TRAIN_*_LAUNCHES``), ``MIN_HEADROOM_GB`` free; one step under
-   ``torch.profiler``. (b) Each pod's gradients for its half of the
-   batch (``EP_MESH``'s 2 pods), synced by
+   ``torch.profiler``; the dry run's ``cell_state`` of (a)'s cell on a
+   one-rank mesh must equal, group by group, the bytes of the tensors
+   (a) holds: the ``LM``'s parameters, the AdamW state and the batch.
+   (b) Each pod's gradients for its half of the batch (``EP_MESH``'s 2
+   pods), synced by
    ``grad_sync.blob_allreduce_grads``: exact within ``SYNC_EXACT_TOL``
    of the plain mean, int8 within ``SYNC_INT8_TOL`` of the largest
    entry; the blobs and the bytes each pod sends. (c) BlobShuffle's
@@ -700,6 +710,51 @@ def gpipe(seed: int, smi: str) -> None:
           "clock": "the host's, synchronised; one card runs the stages in turn, so "
                    "no speedup is expected",
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": True})
+
+
+def dryrun_plan(smi: str) -> None:
+    """Phase ``dryrun_plan`` (step 3 above): ``repro_torch.launch.dryrun``'s
+    ``run_cell`` over every cell of ``all_cells()`` on both production
+    meshes, in this process, on the host: 31 cells a mesh, each cell's
+    groups summing to its argument bytes, ``HBM_PER_CHIP`` the card's
+    ``total_memory``; no kernel launched, no module of JAX loaded. Prints
+    each cell's per-device argument GB and the cells over the card."""
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    before = set(_foreign_modules())
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(dryrun.HBM_PER_CHIP == total,
+          f"dryrun.HBM_PER_CHIP {dryrun.HBM_PER_CHIP} is the card's total_memory {total}")
+    t0 = time.perf_counter()
+    plans = {kind: [dryrun.run_cell(arch, shp, kind) for arch, shp in all_cells()]
+             for kind in ("single", "multi")}
+    seconds = time.perf_counter() - t0
+    args_gb, over = {}, []
+    for kind, cells in plans.items():
+        check(len(cells) == 31, f"31 cells on the {kind} mesh: {len(cells)}")
+        for res in cells:
+            mem = res["memory"]
+            check(mem["argument_bytes"] == sum(mem[f"{g}_bytes"] for g in
+                                               ("params", "opt", "cache", "batch")) > 0,
+                  f"{kind} {res['arch']} {res['shape']}: the groups sum to the argument bytes")
+            key = f"{kind}/{res['arch']}/{res['shape']}"
+            args_gb[key] = mem["argument_bytes"] / 1e9
+            if mem["argument_bytes"] > total:
+                over.append(key)
+    launched = {k.symbol: k.launches for k in kernels}
+    check(not any(launched.values()), f"the plan launches no kernel: {launched}")
+    foreign = sorted(set(_foreign_modules()) - before)
+    check(not foreign, f"the plan loads no module of jax or the JAX package: {foreign[:5]}")
+    emit({"phase": "dryrun_plan", "nvidia_smi": smi, "total_memory": total,
+          "cells": {kind: len(cells) for kind, cells in plans.items()}, "seconds": seconds,
+          "clock": "the host's", "argument_gb_per_device": args_gb,
+          "over_the_card": over,
+          "what": "the sharding plan's bytes per device, not a device measurement",
+          "ok": True})
 
 
 def _foreign_modules() -> list:
@@ -2601,10 +2656,11 @@ def deepseek_v2_lite_train(seed: int, smi: str) -> list:
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ref import flash_ref
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.launch.mesh import stacked_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, stacked_mesh
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_module
-    from repro_torch.models.common import init_params
+    from repro_torch.models.common import ShapeConfig, init_params
     from repro_torch.models.flash import flash_bwd
     from repro_torch.shuffle import api, dispatch
     from repro_torch.shuffle import grad_sync as GS
@@ -2612,6 +2668,7 @@ def deepseek_v2_lite_train(seed: int, smi: str) -> list:
     from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
                                       make_loss_fn, make_train_step)
     from repro_torch.training.train_step import _grads, _split_micro
+    from repro_torch.utils import tree_size_bytes
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2750,6 +2807,14 @@ def deepseek_v2_lite_train(seed: int, smi: str) -> list:
                            25)
     result["plain"] = plain
     RESULTS["deepseek_v2_lite_train"] = plain
+    # the dry run's plan of (a)'s cell on one rank against the tensors (a)
+    # holds on the card, group by group (read, nothing allocated)
+    plan = dryrun.cell_state(cfg, ShapeConfig("deepseek_v2_lite_train", S, B, "train"),
+                             Mesh(("data", "model"), (1, 1)))
+    held = {"params": tree_size_bytes(dict(params.named_parameters())),
+            "opt": tree_size_bytes(opt), "batch": tree_size_bytes(batch)}
+    check(plan == held, f"the dry run's plan of (a) is the bytes (a) holds: {plan}, {held}")
+    result["dryrun_cross_check"] = {"plan_bytes": plan, "held_bytes": held}
     del opt
 
     # (b) the gradient sync at full width: each pod's gradients for its
@@ -3865,6 +3930,7 @@ def main(argv=None) -> int:
 
     engine(args.seed, smi)
     gpipe(args.seed, smi)
+    dryrun_plan(smi)
     kernel_phases(args.seed, (ROWS_PER_BLOCK, 128))
     rows = deployment(args.seed)
     torch.cuda.empty_cache()     # the deployment's tensors went with it

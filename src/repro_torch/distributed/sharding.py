@@ -16,6 +16,9 @@ The port has no ``jax.sharding``: ``PartitionSpec`` is a tuple whose
 ``named_shardings`` maps a nested dict of parameter specs
 (``models.lm.param_defs``) to the same dict of ``NamedSharding``s, which
 ``runtime.elastic_restore_plan`` and ``BlobCheckpointer.restore`` read.
+``NamedSharding.shard_shape`` gives one device's block, as JAX's does;
+the dry run's twin (``launch.dryrun``) sums a cell's inputs by it, under
+the rules that ``ShardingRules.override`` makes for each cell.
 ``constrain`` has no twin: it is a layout hint under ``jit``
 (``with_sharding_constraint``), and the JAX package calls it nowhere.
 """
@@ -23,6 +26,7 @@ The port has no ``jax.sharding``: ``PartitionSpec`` is a tuple whose
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 from repro_torch.models.common import ArraySpec
@@ -46,6 +50,21 @@ class NamedSharding:
     mesh: object
     spec: PartitionSpec
 
+    def shard_shape(self, global_shape) -> tuple:
+        """The shape of one device's block of an array of ``global_shape``,
+        as JAX's ``NamedSharding.shard_shape``: each dimension divided by
+        the product of the mesh axes its entry names."""
+        out = []
+        for i, dim in enumerate(global_shape):
+            part = self.spec[i] if i < len(self.spec) else None
+            axes = () if part is None else (part,) if isinstance(part, str) else part
+            n = math.prod(self.mesh.shape[a] for a in axes)
+            if dim % n:
+                raise ValueError(f"dimension {i} of {tuple(global_shape)} does not divide "
+                                 f"into {n} blocks over {axes}")
+            out.append(dim // n)
+        return tuple(out)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
@@ -57,6 +76,12 @@ class ShardingRules:
             return ()
         r = self.rules.get(name, ())
         return (r,) if isinstance(r, str) else tuple(r)
+
+    def override(self, **kw) -> "ShardingRules":
+        new = dict(self.rules)
+        for k, v in kw.items():
+            new[k] = v
+        return ShardingRules(new)
 
 
 # The JAX package's default rules for the (pod, data, model) mesh family:

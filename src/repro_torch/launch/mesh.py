@@ -18,6 +18,11 @@ The expert-parallel dispatch exchanges tensors between the ranks through
 pod axis: the ranks a pod-local region (``ShuffleConfig.pod_local``)
 runs its expert-parallel dispatch over.
 
+``make_production_mesh`` describes the JAX package's production mesh
+(data 16 x model 16, or pod 2 x data 16 x model 16) as a plain ``Mesh``:
+the dry run's twin (``launch.dryrun``) reads its axes and sizes and runs
+nothing over it.
+
 Building a mesh touches no device and starts no process.
 """
 
@@ -105,6 +110,14 @@ def pod_submesh(mesh: StackedMesh, pod_axis: str = "pod") -> StackedMesh:
     keep = [i for i, a in enumerate(mesh.axis_names) if a != pod_axis]
     return StackedMesh(tuple(mesh.axis_names[i] for i in keep),
                        tuple(mesh.sizes[i] for i in keep))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The JAX package's production mesh: one pod of 256 chips as (data
+    16, model 16); ``multi_pod`` adds a leading pod axis of 2."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
 
 
 def make_test_mesh(*, devices: int = 8) -> StackedMesh:

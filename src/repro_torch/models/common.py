@@ -225,6 +225,18 @@ class ModelConfig:
         model = lm.LM(self, device="meta")
         return sum(p.numel() for p in model.parameters())
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: shared + top_k routed only), the
+        JAX package's formula over ``param_count``."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        moe_layers = self.num_layers - m.first_dense_layers
+        per_expert = 3 * self.d_model * m.d_expert
+        inactive = moe_layers * (m.num_experts - m.top_k) * per_expert
+        return total - inactive
+
 
 # ---------------------------------------------------------------------------
 # Shape presets (the four input-shape cells of the JAX package)

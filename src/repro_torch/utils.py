@@ -1,9 +1,27 @@
 """Small shared helpers, the port's copy of what it needs of
 ``repro.utils``: ``stable_hash64``, which the engine's distributed cache
-hashes keys with. The rest of that module works on JAX trees and has no
-caller here."""
+hashes keys with, and ``tree_size_bytes``, which the dry run's twin
+(``launch.dryrun``) sums a cell's inputs with. The JAX package's trees
+are pytrees; the port's are nested dicts whose leaves are tensors or
+``models.common.ArraySpec``s (anything with a ``shape`` and a torch
+``dtype``). The rest of that module has no caller here."""
 
 from __future__ import annotations
+
+import math
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def tree_size_bytes(tree) -> int:
+    """Total bytes of all leaves (tensors or ``ArraySpec``s)."""
+    return sum(math.prod(x.shape) * x.dtype.itemsize for x in _leaves(tree))
 
 
 def stable_hash64(data: bytes) -> int:
