@@ -82,8 +82,9 @@
    shape select, and ``ssd_scan_op`` against ``ssd_chunked``; and in the
    bf16-intra mode (``intra_bf16``: the intra-chunk tensors rounded to
    bf16 as the JAX package's ``ssd_chunked(..., intra_bf16=True)`` does)
-   a bf16 case on each kernel and an f32 one, through the ``*_bf16i``
-   launchers, y_intra within ``INTRA_BF16_TOL`` (relative max) of
+   a bf16 case on each kernel, an f32 one and P 128 on the tensor-core
+   kernel (its scores per head), through the ``*_bf16i`` launchers,
+   y_intra within ``INTRA_BF16_TOL`` (relative max) of
    ``ssd_chunk_ref(..., intra_bf16=True)`` and the other outputs within
    1e-4.
 6. Zamba2-2.7B at full width (54 layers, d 2560, parameters drawn on the
@@ -1112,8 +1113,9 @@ FLASH_CASES = [
 # mamba2-130m's 128, two groups, chunks of 64 and 256, ragged lengths;
 # mamba2-130m's width (24 heads of 64, N 128, one group); a bf16 N of 40,
 # off the tensor-core kernel's contract, which takes the CUDA-core kernel;
-# the last three in the bf16-intra mode, one on each kernel in bf16 and
-# one in f32
+# the last four in the bf16-intra mode, one on each kernel in bf16, one in
+# f32, and P 128 on the tensor-core kernel, whose block there has no room
+# for the shared score tiles (each head computes its own)
 SSD_CASES = [
     (2, 512, 8, 64, 1, 64, 256, torch.bfloat16, False),
     (2, 512, 8, 64, 2, 128, 256, torch.bfloat16, False),
@@ -1124,6 +1126,7 @@ SSD_CASES = [
     (2, 512, 8, 64, 2, 128, 256, torch.bfloat16, True),
     (1, 600, 8, 64, 1, 40, 256, torch.bfloat16, True),
     (1, 300, 8, 64, 2, 64, 64, torch.float32, True),
+    (1, 512, 8, 128, 1, 64, 256, torch.bfloat16, True),
 ]
 # bf16 flash above head dim 128, at the shapes of the configs that will take
 # it, timed: (name, B, S, H, KVH, D), causal

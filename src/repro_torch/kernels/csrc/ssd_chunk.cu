@@ -29,6 +29,32 @@
 // fragment, so the tensor-core kernel multiplies it with x once (no lo part); the
 // states keep their split (f32 in JAX too). The CUDA-core kernel rounds the same way
 // in scalar code, C, B and x rounded as they are staged (f32 inputs; JAX rounds them).
+// The tensor-core kernel in this mode is laid out for what the mode makes cheap:
+//   - bf16(C . B^T) depends on the group alone, not on the head. So the block's warps
+//     compute it once, the f32 sums in the order of the other mode (the same m16n8k16
+//     over 16 of N at a time), and keep the causal 16 x 16 tiles in shared memory, each
+//     as its lanes' A fragments (one uint4 a lane: a warp reads a tile as 512 contiguous
+//     bytes, free of bank conflicts). At Q 256 that is 136 tiles, 69,632 bytes, in C's
+//     place: each warp holds its tiles in registers until a block barrier says C is
+//     read: 9 at N <= 64 (two groups, 16 warps), 17 at N 80-128 (one group of 8 warps,
+//     68 registers held through the cum_a scans, most of that instance's 126). All 8
+//     heads of a block read them; the products per head fall from
+//     three sets to two (scores, y_intra, states: now only the last two).
+//   - The score chain runs in bf16x2 pairs (score_chain): the two decays of an A-fragment
+//     register rounded by one conversion, then multiplied with the score pair and with
+//     the rounded dt pair by __hmul2_rn. A product of two bf16 values is exact in f32, so
+//     each pair product rounds where round_bf16(a * b) does: the operand is the bits of
+//     the scalar chain, with no repack. bf16(dt) is rounded once per head and column,
+//     into the row array that the other mode's cc takes.
+//   - The next column tile's exps and pairs are issued before this tile's products.
+//   - Shared memory at Zamba2's shape: B 36,864 + tiles 69,632 + two x buffers 73,728 +
+//     the rows (cum_a, dt, bf16(dt), w) of 8 heads 32,768 = 212,992 bytes. Where the
+//     tiles do not fit beside the rest (Q 256, P 128, N 64: 245,760; or Q > 256), a
+//     second instance (template flag kSharedS off) computes each head's S as the other
+//     mode does, with the same chain; the launcher picks it from the shape.
+//   - ptxas -v (tools/ssd_probe.py): the shared-score instances take 116 registers at
+//     N <= 64 (two groups, within the 128 of 512 threads) and 126 at N 80-128 (one
+//     group), the per-head-S instances 120-156; no instance spills or has a stack.
 // Each decay takes the direct form exp(cum_i - cum_j) with expf, as the plain version's
 // torch.exp does on the card, and cum_a is summed in f64 and rounded once, as the plain
 // version sums it: both then give the same f32 decay, so that its rounding to bf16
@@ -62,11 +88,13 @@
 //     group waits for its next head's x tile (Q x P), the other computes. Head hl's x
 //     lies in buffer hl % 2, so with one group the buffers alternate.
 //   - Before the heads, warp k scans head k's cum_a (one warp's shuffle scan over the
-//     chunk, as in the f32 kernel), writes a_total and y_decay, and fills two f32
-//     arrays of the head: w (the states' weight) and cc (below).
+//     chunk, as in the f32 kernel), writes a_total and y_decay, and fills two arrays
+//     of the head: w (the states' weight) and cc (below; bf16(dt) in the bf16-intra
+//     mode).
 //   - y_intra: row tiles of 16, a warp taking tiles t and 2*8-1-t (the causal work of
 //     the pair is the same for every warp). For each column tile j <= i, S_ij is
-//     recomputed from shared memory for each head (m16n8k16 from ldmatrix fragments:
+//     recomputed from shared memory for each head in this mode (the bf16-intra mode
+//     shares its rounded tiles, above) (m16n8k16 from ldmatrix fragments:
 //     C . B^T is a quarter of a head's products and needs no f32 tile to keep).
 //     Off the diagonal the weight exp(cum_i - cum_j) dt_j is a product of factors
 //     that are each at most 1 (tc_y_intra): one exponential a tile pair, where the
@@ -83,7 +111,11 @@
 //     fall in distinct banks.
 // It does not reach its bytes bound: each warp issues its products, weights and splits
 // in turn (tools/ssd_probe.py times the parts, PERF.md has the numbers); wgmma, which
-// runs the products asynchronously beside the weights, is the next step.
+// runs the products asynchronously beside the weights, is the next step. In the
+// bf16-intra mode the products are fewer (one score set a block, one product with x),
+// but each thread takes eight expf a tile pair, which keep the plain version's decays,
+// and the block's score tiles are computed before its first head, with no head's work
+// beside them (PERF.md splits the time).
 //
 // --- f32 (and other bf16 shapes): ssd_chunk_kernel (CUDA cores) ---------------------
 // The products in f32 on the CUDA cores, which makes the operations its limit (~0.8 ms
@@ -340,17 +372,31 @@ constexpr int kTcMaxHeads = kTcWarps;  // heads per block at most: warp k scans 
 template <int N>
 __host__ __device__ constexpr int tc_groups() { return N <= 64 ? 2 : 1; }
 constexpr int kTcPad = 8;              // bf16 of padding a row in shared memory
-constexpr int kTcRowArrays = 4;        // f32 per row and head: cum_a, dt, cc, w
+// f32 per row and head: cum_a, dt, w, and cc (f32 intra) or bf16(dt) (bf16 intra)
+constexpr int kTcRowArrays = 4;
 constexpr size_t kSmemMax = 232448;    // a block's shared memory (227 KB)
+// The bf16-intra block's score tiles: the causal 16 x 16 tiles of bf16(C . B^T), 512
+// bytes each, at most 136 (Q <= 256), each warp holding at most 136 / warps of them in
+// registers until C, whose place they take, is read.
+constexpr int kTcTileBytes = 16 * 16 * sizeof(bf16);
+constexpr int kTcMaxScoreTiles = 136;
+template <int N>
+__host__ __device__ constexpr int tc_tiles_per_warp() {
+  return (kTcMaxScoreTiles + kTcWarps * tc_groups<N>() - 1) / (kTcWarps * tc_groups<N>());
+}
 
 // Switches of tools/ssd_probe.py, a bit mask fixed at build time (-DSSD_PROBE=n; 0, the
 // default, builds the kernel as it is). Each cuts a part out of the tensor-core kernel
 // to see what the rest costs, so every switch makes it compute something else:
-//   1  no y_intra (tc_y_intra skipped);
-//   2  no states (tc_states skipped);
-//   4  no products: each m16n8k16 becomes one dependent add;
-//   8  no decay weights off the diagonal: the raw scores are split;
-//   16 no x loads after the first two heads (each head reads a tile already there).
+//   1   no y_intra (tc_y_intra skipped);
+//   2   no states (tc_states skipped);
+//   4   no products: each m16n8k16 becomes one dependent add;
+//   8   no decay weights off the diagonal: the raw scores are split (f32 intra);
+//   16  no x loads after the first two heads (each head reads a tile already there);
+//   32  bf16 intra: no expf, each decay's argument in its place;
+//   64  bf16 intra: no bf16x2 products in the score chain, the score, decay and dt
+//       pairs combined by one xor;
+//   128 bf16 intra: the scores computed for each head where the block's tiles fit.
 #ifndef SSD_PROBE
 #define SSD_PROBE 0
 #endif
@@ -363,10 +409,33 @@ __host__ __device__ constexpr size_t tc_smem_bytes(int Q, int P, int N, int head
 }
 
 // Heads a block takes: the most of 8, 4, 2, 1 whose shared memory fits; 0 if none.
+// Chosen by the wave count at Zamba2's shape (80 heads, 64 chunks, one block to an SM):
+// 8 make 640 blocks, 4.85 waves on 132 SMs, the 5 waves 97% busy. With shared score
+// tiles more heads would share them further, but 10 (512 blocks, 3.88 waves) fill the
+// waves no better and save 1.1% of the products (the tiles are 6.0% of a block's at 8
+// heads); 16 fill 81% (2.42 waves), and 20 leave no room for their rows.
 __host__ __device__ constexpr int tc_heads(int Q, int P, int N) {
   int heads = kTcMaxHeads;
   while (heads > 0 && tc_smem_bytes(Q, P, N, heads) > kSmemMax) heads /= 2;
   return heads;
+}
+
+__host__ __device__ constexpr int tc_score_tiles(int Q) { return (Q / 16) * (Q / 16 + 1) / 2; }
+
+// The bf16-intra block with shared score tiles: C's place, then the tiles, as large as
+// the larger of the two; B, x and the rows as in tc_smem_bytes.
+__host__ __device__ constexpr size_t tc_shared_smem_bytes(int Q, int P, int N, int heads) {
+  const size_t c = static_cast<size_t>(Q) * (N + kTcPad) * sizeof(bf16);
+  const size_t tiles = static_cast<size_t>(tc_score_tiles(Q)) * kTcTileBytes;
+  return tc_smem_bytes(Q, P, N, heads) - c + (tiles > c ? tiles : c);
+}
+
+// Whether the bf16-intra block shares its score tiles at this shape: the tiles within
+// kTcMaxScoreTiles and the block within its shared memory at tc_heads' heads. Elsewhere
+// (Q 256, P 128, N 64: 245,760 bytes) each head computes its own scores.
+__host__ __device__ constexpr bool tc_shares_scores(int Q, int P, int N) {
+  return !(kProbe & 128) && tc_score_tiles(Q) <= kTcMaxScoreTiles &&
+         tc_shared_smem_bytes(Q, P, N, tc_heads(Q, P, N)) <= kSmemMax;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -410,6 +479,9 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
+__device__ __forceinline__ __nv_bfloat162 pair(uint32_t r) {
+  return *reinterpret_cast<__nv_bfloat162*>(&r);
+}
 
 // The pair (u, v) as bf16 hi = bf16(.) and lo = bf16(. - hi), u in the low halves.
 __device__ __forceinline__ void split2(float u, float v, uint32_t& hi, uint32_t& lo) {
@@ -420,8 +492,23 @@ __device__ __forceinline__ void split2(float u, float v, uint32_t& hi, uint32_t&
 }
 
 __device__ __forceinline__ float2 widen(uint32_t r) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
+  return __bfloat1622float2(pair(r));
 }
+
+// The bf16-intra score chain of one A-fragment register, two columns of one row:
+// bf16(bf16(s * bf16(decay)) * bf16(dt)) for the rounded score pair s, the decays d0, d1
+// (f32) and the rounded dt pair. A product of two bf16 values is exact in f32, so each
+// __hmul2_rn rounds exactly where round_bf16(a * b) does, and its result is the operand.
+__device__ __forceinline__ uint32_t score_chain(uint32_t s, float d0, float d1, uint32_t dt) {
+  const __nv_bfloat162 decay = __floats2bfloat162_rn(d0, d1);
+  if (kProbe & 64) return s ^ bits(decay) ^ dt;
+  return bits(__hmul2_rn(__hmul2_rn(pair(s), decay), pair(dt)));
+}
+
+__device__ __forceinline__ float decay_exp(float d) { return (kProbe & 32) ? d : expf(d); }
+
+// -inf, the masked decay's exponent
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
 
 // The warp's index within its group, through a shuffle so that the compiler knows it
 // is the same across the warp (the products' .aligned instructions then need no
@@ -446,20 +533,102 @@ __device__ __forceinline__ void stage_x(bf16* dst, const bf16* src, long long x_
   }
 }
 
+// S = C_i . B_j^T for the 16 rows i0.. and the 16 columns j0.., as two n8 accumulators
+// (the layout of one A fragment), from the A fragments cf of C's rows: one m16n8k16 pair
+// for each 16 of N, in order of kk.
+template <int N>
+__device__ __forceinline__ void c_bt(const bf16* sB, const uint32_t (&cf)[N / 16][4], int j0,
+                                     float (&out)[2][4]) {
+  constexpr int LDN = N + kTcPad;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) out[n][0] = out[n][1] = out[n][2] = out[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    uint32_t b[4];
+    ldmatrix_x4(smem_addr(sB + (j0 + (lane >> 4) * 8 + (lane & 7)) * LDN + kk * 16 +
+                          ((lane >> 3) & 1) * 8),
+                b);
+    mma_bf16(out[0], cf[kk], b[0], b[1]);
+    mma_bf16(out[1], cf[kk], b[2], b[3]);
+  }
+}
+
+// The A fragments of C's rows i0..i0+15.
+template <int N>
+__device__ __forceinline__ void c_rows(const bf16* sC, int i0, uint32_t (&cf)[N / 16][4]) {
+  constexpr int LDN = N + kTcPad;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    ldmatrix_x4(smem_addr(sC + (i0 + (lane & 15)) * LDN + kk * 16 + (lane >> 4) * 8), cf[kk]);
+}
+
+// The rounded scores bf16(S) as one A fragment (rows g, g + 8; columns 2 tq, 2 tq + 1,
+// then 8 more), the low half of each register the even column.
+__device__ __forceinline__ void round_scores(const float (&s)[2][4], uint32_t (&a)[4]) {
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb) {
+    a[2 * nb] = bits(__floats2bfloat162_rn(s[nb][0], s[nb][1]));
+    a[2 * nb + 1] = bits(__floats2bfloat162_rn(s[nb][2], s[nb][3]));
+  }
+}
+
+// The bf16-intra block's score tiles: bf16(C . B^T) of the chunk's group, the causal
+// tile (it, jt) at it (it + 1) / 2 + jt, each as its 32 lanes' A fragments, one uint4 a
+// lane (a warp reads a tile as 512 contiguous bytes, free of bank conflicts). The
+// block's warps take tiles w, w + warps, ...; C lies where the tiles go, so each warp
+// keeps its tiles in registers and writes them only after a block barrier.
+template <int N>
+__device__ __forceinline__ void tc_scores(const bf16* sC, const bf16* sB,
+                                          uint32_t (&tiles)[tc_tiles_per_warp<N>()][4], int Q) {
+  constexpr int kWarps = kTcWarps * tc_groups<N>();
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int n_score = tc_score_tiles(Q);
+#pragma unroll
+  for (int k = 0; k < tc_tiles_per_warp<N>(); ++k) {
+    const int t = w + k * kWarps;
+    if (t >= n_score) break;
+    int it = 0;
+    while ((it + 1) * (it + 2) / 2 <= t) ++it;
+    uint32_t cf[N / 16][4];
+    c_rows<N>(sC, it * 16, cf);
+    float s[2][4];
+    c_bt<N>(sB, cf, (t - it * (it + 1) / 2) * 16, s);
+    round_scores(s, tiles[k]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void tc_store_scores(
+    uint4* sS, const uint32_t (&tiles)[tc_tiles_per_warp<N>()][4], int Q) {
+  constexpr int kWarps = kTcWarps * tc_groups<N>();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_score = tc_score_tiles(Q);
+#pragma unroll
+  for (int k = 0; k < tc_tiles_per_warp<N>(); ++k) {
+    const int t = w + k * kWarps;
+    if (t >= n_score) break;
+    sS[t * 32 + lane] = make_uint4(tiles[k][0], tiles[k][1], tiles[k][2], tiles[k][3]);
+  }
+}
+
 // y_intra of one head: this warp's row tiles, all P columns. Off the diagonal tile
 // (j0 + 16 <= i0) the weight exp(cum_i - cum_j) dt_j is the product of three factors,
 // each at most 1, so that no product overflows:
 //   R_i = exp(cum_i - cum_i0)  (per row tile),  E = exp(cum_i0 - cum_je)  (per tile pair),
 //   cc_j = exp(cum_je - cum_j) dt_j  (per head, in shared memory),  je = j0 + 15,
 // one exponential a tile pair where the direct form takes eight a thread. The diagonal
-// tile takes the direct form, masked before the exp. In the bf16-intra mode every tile
-// takes the direct form (the plain version's decay, then rounded) and the rounded score
-// is one bf16 fragment.
-template <int N, bool kIntraBf16>
-__device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const bf16* sX,
-                                           const float* cum, const float* dts, const float* cc,
-                                           float* yb, long long y_stride, int Q, int P) {
-  constexpr int LDN = N + kTcPad;
+// tile takes the direct form, masked before the exp.
+// In the bf16-intra mode every tile takes the direct form (the plain version's decay)
+// and score_chain turns the rounded score fragment into the operand in bf16x2 pairs;
+// the fragment comes from the block's tiles (kSharedS) or from this head's own C . B^T.
+// There the next tile's exps and pairs are issued before this tile's products.
+template <int N, bool kIntraBf16, bool kSharedS>
+__device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const uint4* sS,
+                                           const bf16* sX, const float* cum, const float* dts,
+                                           const float* cc, const bf16* dtb, float* yb,
+                                           long long y_stride, int Q, int P) {
   const int LDP = P + kTcPad;
   const int warp = group_warp(), lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -472,85 +641,34 @@ __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const
     const float cum_i0 = cum[i0], cum_a = cum[ra], cum_b = cum[rb];
     const float row_a = expf(cum_a - cum_i0), row_b = expf(cum_b - cum_i0);
     uint32_t cf[N / 16][4];  // C rows i0..i0+15 as A fragments
+    if constexpr (!kSharedS) c_rows<N>(sC, i0, cf);
+    // bf16 intra: column tile jt's operand from its rounded score fragment sc
+    auto weigh = [&](int jt, const uint32_t (&sc)[4], uint32_t (&a)[4]) {
 #pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk)
-      ldmatrix_x4(smem_addr(sC + (i0 + (lane & 15)) * LDN + kk * 16 + (lane >> 4) * 8), cf[kk]);
+      for (int nb = 0; nb < 2; ++nb) {
+        const int j = jt * 16 + nb * 8 + 2 * tq;
+        const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+        const uint32_t dj = *reinterpret_cast<const uint32_t*>(dtb + j);
+        float da0 = cum_a - cj.x, da1 = cum_a - cj.y, db0 = cum_b - cj.x, db1 = cum_b - cj.y;
+        uint32_t keep_a = ~0u, keep_b = ~0u;
+        if (jt == it) {  // the diagonal: masked before the exp, and to +0 after the chain
+          da0 = ra >= j ? da0 : neg_inf();
+          da1 = ra >= j + 1 ? da1 : neg_inf();
+          db0 = rb >= j ? db0 : neg_inf();
+          db1 = rb >= j + 1 ? db1 : neg_inf();
+          keep_a = (ra >= j ? 0xffffu : 0u) | (ra >= j + 1 ? 0xffff0000u : 0u);
+          keep_b = (rb >= j ? 0xffffu : 0u) | (rb >= j + 1 ? 0xffff0000u : 0u);
+        }
+        a[2 * nb] = score_chain(sc[2 * nb], decay_exp(da0), decay_exp(da1), dj) & keep_a;
+        a[2 * nb + 1] = score_chain(sc[2 * nb + 1], decay_exp(db0), decay_exp(db1), dj) & keep_b;
+      }
+    };
     for (int p0 = 0; p0 < P; p0 += 64) {
       float acc[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-      // S = C_i . B_j^T, 16 x 16 as two n8 accumulators; the next column tile's S is
-      // issued before this one is weighted, so that its products overlap the weights
-      auto c_bt = [&](int j0, float (&out)[2][4]) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n) out[n][0] = out[n][1] = out[n][2] = out[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < N / 16; ++kk) {
-          uint32_t b[4];
-          ldmatrix_x4(smem_addr(sB + (j0 + (lane >> 4) * 8 + (lane & 7)) * LDN + kk * 16 +
-                                ((lane >> 3) & 1) * 8),
-                      b);
-          mma_bf16(out[0], cf[kk], b[0], b[1]);
-          mma_bf16(out[1], cf[kk], b[2], b[3]);
-        }
-      };
-      float s_next[2][4];
-      c_bt(0, s_next);
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * 16;
-        float s[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = s_next[n][e];
-        if (jt < it) c_bt(j0 + 16, s_next);
-        // weight by decay and dt[j]; split into hi/lo (bf16 intra: rounded into hi)
-        uint32_t hi[4], lo[4];
-        if constexpr (kIntraBf16) {
-#pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
-            const int j = j0 + nb * 8 + 2 * tq;
-            const float2 cj = *reinterpret_cast<const float2*>(cum + j);
-            const float2 dj = *reinterpret_cast<const float2*>(dts + j);
-            const float v0 = ra >= j ? intra_bf16_score(s[nb][0], expf(cum_a - cj.x), dj.x) : 0.f;
-            const float v1 =
-                ra >= j + 1 ? intra_bf16_score(s[nb][1], expf(cum_a - cj.y), dj.y) : 0.f;
-            const float v2 = rb >= j ? intra_bf16_score(s[nb][2], expf(cum_b - cj.x), dj.x) : 0.f;
-            const float v3 =
-                rb >= j + 1 ? intra_bf16_score(s[nb][3], expf(cum_b - cj.y), dj.y) : 0.f;
-            hi[2 * nb] = bits(__floats2bfloat162_rn(v0, v1));  // exact: already bf16
-            hi[2 * nb + 1] = bits(__floats2bfloat162_rn(v2, v3));
-          }
-        } else if (kProbe & 8) {
-#pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
-            split2(s[nb][0], s[nb][1], hi[2 * nb], lo[2 * nb]);
-            split2(s[nb][2], s[nb][3], hi[2 * nb + 1], lo[2 * nb + 1]);
-          }
-        } else if (jt < it) {
-          const float e = expf(cum_i0 - cum[j0 + 15]);
-          const float fa = row_a * e, fb = row_b * e;
-#pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
-            const float2 c = *reinterpret_cast<const float2*>(cc + j0 + nb * 8 + 2 * tq);
-            split2(s[nb][0] * fa * c.x, s[nb][1] * fa * c.y, hi[2 * nb], lo[2 * nb]);
-            split2(s[nb][2] * fb * c.x, s[nb][3] * fb * c.y, hi[2 * nb + 1], lo[2 * nb + 1]);
-          }
-        } else {
-#pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
-            const int j = j0 + nb * 8 + 2 * tq;
-            const float2 cj = *reinterpret_cast<const float2*>(cum + j);
-            const float2 dj = *reinterpret_cast<const float2*>(dts + j);
-            const float v0 = ra >= j ? s[nb][0] * expf(cum_a - cj.x) * dj.x : 0.f;
-            const float v1 = ra >= j + 1 ? s[nb][1] * expf(cum_a - cj.y) * dj.y : 0.f;
-            const float v2 = rb >= j ? s[nb][2] * expf(cum_b - cj.x) * dj.x : 0.f;
-            const float v3 = rb >= j + 1 ? s[nb][3] * expf(cum_b - cj.y) * dj.y : 0.f;
-            split2(v0, v1, hi[2 * nb], lo[2 * nb]);          // row g, k 8 nb + 2 tq
-            split2(v2, v3, hi[2 * nb + 1], lo[2 * nb + 1]);  // row g + 8
-          }
-        }
-        // Y += P . x_j, hi and lo into one accumulator
+      // Y += P . x_j: the bf16 operand (or its hi part) and, for f32 intra, its lo part
+      auto multiply = [&](int j0, const uint32_t (&hi)[4], const uint32_t (&lo)[4]) {
 #pragma unroll
         for (int pn = 0; pn < 4; ++pn) {
           if (p0 + pn * 16 >= P) break;
@@ -564,6 +682,76 @@ __device__ __forceinline__ void tc_y_intra(const bf16* sC, const bf16* sB, const
             mma_bf16(acc[2 * pn], lo, b[0], b[1]);
             mma_bf16(acc[2 * pn + 1], lo, b[2], b[3]);
           }
+        }
+      };
+      if constexpr (kSharedS) {
+        // the row tile's score tiles lie one after another from it (it + 1) / 2
+        const uint4* row = sS + (it * (it + 1) / 2) * 32 + lane;
+        auto scores = [&](int jt, uint32_t (&sc)[4]) {
+          const uint4 v = row[jt * 32];
+          sc[0] = v.x, sc[1] = v.y, sc[2] = v.z, sc[3] = v.w;
+        };
+        uint32_t sc[4], a[4];
+        scores(0, sc);
+        weigh(0, sc, a);
+        for (int jt = 0; jt < it; ++jt) {
+          uint32_t next[4];
+          scores(jt + 1, sc);
+          weigh(jt + 1, sc, next);
+          multiply(jt * 16, a, a);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = next[r];
+        }
+        multiply(it * 16, a, a);
+      } else {
+        // this head's S; the next column tile's S is issued before this one is
+        // weighted, so that its products overlap the weights
+        float s_next[2][4];
+        c_bt<N>(sB, cf, 0, s_next);
+        for (int jt = 0; jt <= it; ++jt) {
+          const int j0 = jt * 16;
+          float s[2][4];
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = s_next[n][e];
+          if (jt < it) c_bt<N>(sB, cf, j0 + 16, s_next);
+          // weight by decay and dt[j]; split into hi/lo (bf16 intra: rounded into hi)
+          uint32_t hi[4], lo[4];
+          if constexpr (kIntraBf16) {
+            uint32_t sc[4];
+            round_scores(s, sc);
+            weigh(jt, sc, hi);
+          } else if (kProbe & 8) {
+#pragma unroll
+            for (int nb = 0; nb < 2; ++nb) {
+              split2(s[nb][0], s[nb][1], hi[2 * nb], lo[2 * nb]);
+              split2(s[nb][2], s[nb][3], hi[2 * nb + 1], lo[2 * nb + 1]);
+            }
+          } else if (jt < it) {
+            const float e = expf(cum_i0 - cum[j0 + 15]);
+            const float fa = row_a * e, fb = row_b * e;
+#pragma unroll
+            for (int nb = 0; nb < 2; ++nb) {
+              const float2 c = *reinterpret_cast<const float2*>(cc + j0 + nb * 8 + 2 * tq);
+              split2(s[nb][0] * fa * c.x, s[nb][1] * fa * c.y, hi[2 * nb], lo[2 * nb]);
+              split2(s[nb][2] * fb * c.x, s[nb][3] * fb * c.y, hi[2 * nb + 1], lo[2 * nb + 1]);
+            }
+          } else {
+#pragma unroll
+            for (int nb = 0; nb < 2; ++nb) {
+              const int j = j0 + nb * 8 + 2 * tq;
+              const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+              const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+              const float v0 = ra >= j ? s[nb][0] * expf(cum_a - cj.x) * dj.x : 0.f;
+              const float v1 = ra >= j + 1 ? s[nb][1] * expf(cum_a - cj.y) * dj.y : 0.f;
+              const float v2 = rb >= j ? s[nb][2] * expf(cum_b - cj.x) * dj.x : 0.f;
+              const float v3 = rb >= j + 1 ? s[nb][3] * expf(cum_b - cj.y) * dj.y : 0.f;
+              split2(v0, v1, hi[2 * nb], lo[2 * nb]);          // row g, k 8 nb + 2 tq
+              split2(v2, v3, hi[2 * nb + 1], lo[2 * nb + 1]);  // row g + 8
+            }
+          }
+          multiply(j0, hi, lo);
         }
       }
 #pragma unroll
@@ -630,7 +818,7 @@ __device__ __forceinline__ void tc_states(const bf16* sB, const bf16* sX, const 
   }
 }
 
-template <int N, bool kIntraBf16>
+template <int N, bool kIntraBf16, bool kSharedS>
 __global__ void __launch_bounds__(kTcGroupThreads * tc_groups<N>(), 1)
 ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const bf16* __restrict__ Bg,
@@ -638,15 +826,20 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     float* __restrict__ states, float* __restrict__ a_total,
                     float* __restrict__ y_decay, int nc, int Q, int H, int P, int G,
                     int heads, int head_blocks) {
+  static_assert(kIntraBf16 || !kSharedS, "only the bf16-intra scores are shared");
   constexpr int LDN = N + kTcPad;
   constexpr int kGroups = tc_groups<N>();
   constexpr int kThreads = kTcGroupThreads * kGroups;
   extern __shared__ __align__(16) unsigned char tc_smem[];
+  // C; with shared scores, then the score tiles in its place (bf16 counts)
+  const int c_region = kSharedS ? max(Q * LDN, tc_score_tiles(Q) * kTcTileBytes / 2) : Q * LDN;
   bf16* sC = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sB = sC + Q * LDN;
+  const uint4* sS = reinterpret_cast<const uint4*>(tc_smem);
+  bf16* sB = sC + c_region;
   bf16* sX0 = sB + Q * LDN;
   bf16* sX1 = sX0 + Q * (P + kTcPad);
-  // per head and row: cum_a, dt, cc (the column factor of tc_y_intra), w
+  // per head and row: cum_a, dt, cc (the column factor of tc_y_intra; bf16 intra: the
+  // rounded dt, Q bf16 in its place), w
   float* sCum = reinterpret_cast<float*>(sX1 + Q * (P + kTcPad));  // [heads][Q]
   float* sDt = sCum + heads * Q;
   float* sCC = sDt + heads * Q;
@@ -675,17 +868,32 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     }
     cp_async_commit();
   }
-  for (int hl = group; hl < min(2, nh); hl += kGroups) {
-    stage_x(hl ? sX1 : sX0, xb + hl * P, x_stride, Q, P);
-    cp_async_commit();
+  // x groups a thread commits (with shared scores, padded with empty groups so that
+  // every thread can wait for C and B alone)
+  constexpr int kXGroups = kGroups == 2 ? 1 : 2;
+  for (int k = 0, hl = group; k < kXGroups; ++k, hl += kGroups) {
+    if (hl < min(2, nh)) {
+      stage_x(hl ? sX1 : sX0, xb + hl * P, x_stride, Q, P);
+      cp_async_commit();
+    } else if (kSharedS) {
+      cp_async_commit();
+    }
   }
 
-  // 2. cum_a of head h0 + k by warp k; a_total, y_decay, cc and w
+  // 2. cum_a of head h0 + k by warp k; a_total, y_decay, cc (bf16 intra: bf16(dt)) and
+  // w. With shared scores the block's warps first compute the score tiles into registers.
   for (int e = tid; e < Q * heads; e += kThreads) {
     const int i = e / heads, hl = e % heads;
     if (hl < nh) sDt[hl * Q + i] = dt[(row0 + i) * H + h0 + hl];
   }
-  __syncthreads();
+  uint32_t tiles[kSharedS ? tc_tiles_per_warp<N>() : 1][4];
+  if constexpr (kSharedS) {
+    cp_async_wait<kXGroups>();  // C and B
+    __syncthreads();
+    tc_scores<N>(sC, sB, tiles, Q);
+  } else {
+    __syncthreads();
+  }
   if (warp < nh) {
     const int h = h0 + warp;
     const float* dts = sDt + warp * Q;
@@ -698,16 +906,23 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     float* w = sW + warp * Q;
     for (int i = lane; i < Q; i += 32) {
       y_decay[(row0 + i) * H + h] = expf(cum[i]);
-      cc[i] = expf(cum[i | 15] - cum[i]) * dts[i];  // i | 15: the last row of i's tile
+      if constexpr (kIntraBf16)
+        reinterpret_cast<bf16*>(cc)[i] = __float2bfloat16_rn(dts[i]);
+      else
+        cc[i] = expf(cum[i | 15] - cum[i]) * dts[i];  // i | 15: the last row of i's tile
       w[i] = expf(total - cum[i]) * dts[i];
     }
+  }
+  if constexpr (kSharedS) {
+    __syncthreads();  // every warp is done with C
+    tc_store_scores<N>(reinterpret_cast<uint4*>(tc_smem), tiles, Q);
   }
 
   // 3. the heads: group k takes heads k, k + groups, ...; head hl's x lies in buffer
   // hl % 2 and the load of head hl + 2 follows its use. With two groups the other
   // group computes while one waits for its load; with one, the buffers alternate.
   cp_async_wait<0>();
-  __syncthreads();  // C, B, the first x tiles and the scans
+  __syncthreads();  // C, B (or the score tiles), the first x tiles and the scans
   for (int hl = group; hl < nh; hl += kGroups) {
     bf16* sX = (hl & 1) ? sX1 : sX0;
     if (hl >= 2) {
@@ -719,8 +934,10 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     }
     const int h = h0 + hl;
     if (!(kProbe & 1))
-      tc_y_intra<N, kIntraBf16>(sC, sB, sX, sCum + hl * Q, sDt + hl * Q, sCC + hl * Q,
-                    y + row0 * x_stride + static_cast<long long>(h) * P, x_stride, Q, P);
+      tc_y_intra<N, kIntraBf16, kSharedS>(
+          sC, sB, sS, sX, sCum + hl * Q, sDt + hl * Q, sCC + hl * Q,
+          reinterpret_cast<const bf16*>(sCC + hl * Q),
+          y + row0 * x_stride + static_cast<long long>(h) * P, x_stride, Q, P);
     if (!(kProbe & 2))
       tc_states<N>(sB, sX, sW + hl * Q,
                    states + (chunk * H + h) * static_cast<long long>(P) * N, Q, P);
@@ -732,24 +949,42 @@ ssd_chunk_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <int N, bool kIntraBf16>
-int launch_tc(const void* x, const void* dt, const void* A, const void* B, const void* C,
-              void* y, void* states, void* a_total, void* y_decay, int b, int nc, int Q, int H,
-              int P, int G, cudaStream_t stream) {
+template <int N, bool kIntraBf16, bool kSharedS>
+int launch_tc_instance(const void* x, const void* dt, const void* A, const void* B,
+                       const void* C, void* y, void* states, void* a_total, void* y_decay,
+                       int b, int nc, int Q, int H, int P, int G, cudaStream_t stream) {
   const int heads = tc_heads(Q, P, N);
-  const size_t smem = tc_smem_bytes(Q, P, N, heads);
+  const size_t smem =
+      kSharedS ? tc_shared_smem_bytes(Q, P, N, heads) : tc_smem_bytes(Q, P, N, heads);
   const cudaError_t err =
-      cudaFuncSetAttribute(ssd_chunk_tc_kernel<N, kIntraBf16>,
+      cudaFuncSetAttribute(ssd_chunk_tc_kernel<N, kIntraBf16, kSharedS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int head_blocks = (H / G + heads - 1) / heads;
   const dim3 grid(head_blocks * G, nc, b);
-  ssd_chunk_tc_kernel<N, kIntraBf16><<<grid, kTcGroupThreads * tc_groups<N>(), smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const bf16*>(B), static_cast<const bf16*>(C), static_cast<float*>(y),
-      static_cast<float*>(states), static_cast<float*>(a_total), static_cast<float*>(y_decay),
-      nc, Q, H, P, G, heads, head_blocks);
+  ssd_chunk_tc_kernel<N, kIntraBf16, kSharedS>
+      <<<grid, kTcGroupThreads * tc_groups<N>(), smem, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const float*>(dt),
+          static_cast<const float*>(A), static_cast<const bf16*>(B),
+          static_cast<const bf16*>(C), static_cast<float*>(y), static_cast<float*>(states),
+          static_cast<float*>(a_total), static_cast<float*>(y_decay), nc, Q, H, P, G, heads,
+          head_blocks);
   return cudaGetLastError();
+}
+
+// The instance of the shape: in the bf16-intra mode with the block's score tiles where
+// they fit (tc_shares_scores).
+template <int N, bool kIntraBf16>
+int launch_tc(const void* x, const void* dt, const void* A, const void* B, const void* C,
+              void* y, void* states, void* a_total, void* y_decay, int b, int nc, int Q, int H,
+              int P, int G, cudaStream_t stream) {
+  if constexpr (kIntraBf16) {
+    if (tc_shares_scores(Q, P, N))
+      return launch_tc_instance<N, true, true>(x, dt, A, B, C, y, states, a_total, y_decay, b,
+                                               nc, Q, H, P, G, stream);
+  }
+  return launch_tc_instance<N, kIntraBf16, false>(x, dt, A, B, C, y, states, a_total, y_decay,
+                                                  b, nc, Q, H, P, G, stream);
 }
 
 template <bool kIntraBf16>

@@ -23,7 +23,10 @@ Each kernel has a second launcher for the bf16-intra mode
 ``ssd_chunked(..., intra_bf16=True)``): ``ssd_chunk_fwd_tc_bf16i`` and
 ``ssd_chunk_fwd_bf16i``, routed by the same dtype and shape rules. The
 intra-chunk scores are rounded to bf16 at each step, and the tensor-core
-kernel multiplies them with x once, without the lo part.
+kernel multiplies them with x once, without the lo part. Its block rounds
+C . B^T once for all its heads, where the tiles fit in shared memory
+beside the rest (Q at most 256; the source decides, the route does not
+change), and each head weights them in bf16x2 pairs.
 """
 
 from __future__ import annotations
