@@ -254,8 +254,25 @@
    tokens/s, the input's host wait, prefetch and overlap, the records
    delivered and replayed, the rows filtered, the rebalances, the losses
    and the peak memory; hands its losses, steps, peak and final
-   parameters' digest to 12 through ``RESULTS``.
-12. ``deepseek_v2_lite_shuffle_resume``: the training benchmark's crash
+   parameters' digest to 13 through ``RESULTS``.
+12. ``shuffle_fed_process_group``: the training input and the train step
+   over a ``ProcessGroupMesh``, on one NCCL process group of one process
+   (world 1, a file rendezvous in a temporary directory; the mesh is
+   ``launch.mesh.process_group_test_mesh``'s, data 1). 11's model, seed,
+   stream, engine and pipeline, the ``blob`` shuffle and the ``auto``
+   sync (the blob sync needs pod > 1), ``PG_STEPS`` steps of
+   ``train_shuffle_fed``; then the group is destroyed and the same loop
+   runs over a ``StackedMesh`` of the same axes (so it reads no default
+   group). Checks: the backend is ``nccl``; in both runs every batch is
+   ``reference_batch``'s bits and its first batch's
+   ``validate_device_batch`` report is ``input_spec_report``'s on that
+   mesh; finite losses; the two runs' losses and final parameters the
+   same bits, compared on the card (or else the largest relative loss
+   gap within ``PG_LOSS_TOL``, printed); (c)'s flash, pack and unpack launches a
+   step in both and no other kernel; the group destroyed; no module of
+   JAX loaded. Prints each run's step seconds and peak memory and the
+   phase's seconds.
+13. ``deepseek_v2_lite_shuffle_resume``: the training benchmark's crash
    lane (``benchmarks/train_input.py``'s resume lane) at published
    widths. 11's model, seed, stream, train config, engine and pipeline,
    checkpointed by ``train_shuffle_fed`` into
@@ -287,7 +304,7 @@
    ``--resume`` (SMOKE, on the card) as two processes under one
    temporary ``TMPDIR``: the first must print ``CRASHED``, the second
    ``OK ... start_step=4``.
-13. ``deepseek_v2_lite_restart``: blob checkpoints and restart. The same
+14. ``deepseek_v2_lite_restart``: blob checkpoints and restart. The same
    3 layers, seed, batch and plain step as (a) of 10, 4 steps twice: once
    uninterrupted, and once driven by ``repro_torch.runtime``'s
    ``FaultTolerantTrainer`` (``ckpt_every`` 2, async uploads, one
@@ -308,7 +325,7 @@
    -m repro_torch.launch.train --arch deepseek-v2-lite-16b --steps 4
    --ckpt-every 2 --ckpt-dir <tmp>`` (SMOKE, on the card) must commit
    manifests 0, 2 and 4.
-14. ``deepseek_v2_lite_elastic``: the elastic restore. The same 3 layers'
+15. ``deepseek_v2_lite_elastic``: the elastic restore. The same 3 layers'
    parameters (1,670,135,296 f32, drawn on the card from the seed) and
    two restore plans from ``repro_torch.runtime.elastic_restore_plan``
    over ``lm.param_defs`` and ``DEFAULT_RULES``: ``EP_MESH``'s (pod 2 x
@@ -328,7 +345,7 @@
    clock), the host memory around each, the peak device memory (of the
    path, and with the checks' temporaries over the two logits) and the
    launches; then deletes the store, whose host memory must come back.
-15. Prints the script's seconds (``script``), then one ``kernels`` line:
+16. Prints the script's seconds (``script``), then one ``kernels`` line:
    per kernel its launches on its main path (the round trip, or one
    prefill), its median time over repeated runs
    with CUDA events at that path's shapes, its bytes and operations and
@@ -361,7 +378,7 @@
    pack and unpack at one microbatch's shapes, with their launches a
    step and, for pack and unpack, those at the timed shape) and the SSD
    chunk's (``path`` ``kernel_grads``) follow.
-16. Ends with ``{"ok": true, "device": {...}}``.
+17. Ends with ``{"ok": true, "device": {...}}``.
 
 Every check raises, so any failure exits non-zero. Without a CUDA device
 the script exits non-zero before it prints any result.
@@ -507,6 +524,12 @@ SHUFFLE_FED_STEPS = 12
 SHUFFLE_FED_CAPACITY = 2.0
 SHUFFLE_FED_PIPELINE = {"step_interval_s": 0.05, "prefetch_steps": 2}
 SHUFFLE_FED_OVERLAP = 0.5
+# the shuffle-fed training over a process group (phase
+# shuffle_fed_process_group): one NCCL process, the shuffle-fed phase's
+# settings with the auto sync, this many steps; the loss gap allowed to
+# its stacked twin where the bits differ
+PG_STEPS = 4
+PG_LOSS_TOL = 1e-3
 # deepseek-v2-lite restarted from blob checkpoints (phase
 # deepseek_v2_lite_restart): (a)'s step, 4 steps with a manifest every 2
 # and one failure at step 3, so manifests 0, 2 and 4 and a restore of 2
@@ -3239,6 +3262,137 @@ def deepseek_v2_lite_shuffle_fed(seed: int, smi: str) -> None:
           "ok": True})
 
 
+def shuffle_fed_process_group(seed: int, smi: str) -> None:
+    """Phase ``shuffle_fed_process_group`` (step 12 above): the shuffle-fed
+    phase's model, stream, engine and pipeline with the ``auto`` sync,
+    ``PG_STEPS`` steps of ``train_shuffle_fed`` over
+    ``process_group_test_mesh()`` on one NCCL process, then over a
+    ``StackedMesh`` of the same axes once the group is destroyed: the
+    same batches, losses, parameters and launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.blob_pack import kernel as pack_kernel
+    from repro_torch.kernels.blob_unpack import kernel as unpack_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.launch.engine import faulty_elastic_engine
+    from repro_torch.launch.mesh import process_group_test_mesh, stacked_mesh
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train_input import (input_spec_report, reference_batch,
+                                         train_shuffle_fed, validate_device_batch)
+    from repro_torch.training import make_train_step
+
+    t_phase = time.perf_counter()
+    before = set(_foreign_modules())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 0.5, f"device memory free before the process-group run: {held_gb} GB held")
+    arch = "deepseek-v2-lite-16b"
+    cfg, stream, _, tcfg, kernels, _ = shuffle_fed_settings(seed)
+    tcfg = dataclasses.replace(tcfg, grad_sync="auto",
+                               opt=dataclasses.replace(tcfg.opt, total_steps=PG_STEPS))
+    shape = ShapeConfig("shuffle_fed", stream.seq_len, stream.batch, "train")
+    # the auto step on a mesh with no expert axis: (c)'s dense dispatch
+    per_step = {flash_kernel.FLASH_WGMMA.symbol: TRAIN_FLASH_LAUNCHES,
+                pack_kernel.PACK.symbol: TRAIN_PACK_LAUNCHES,
+                unpack_kernel.UNPACK.symbol: TRAIN_PACK_LAUNCHES}
+
+    def run(mesh):
+        """(the run's readings, its final model)"""
+        step = make_train_step(cfg, tcfg, mesh=mesh)
+        served, secs, model, reports = [], [], [], []
+
+        def recording_step(params, opt, batch):
+            if not reports:
+                reports.append(validate_device_batch(batch, cfg, shape, mesh))
+            served.append(batch)
+            t1 = time.perf_counter()
+            out = step(params, opt, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            model[:] = out[:1]
+            return out
+
+        for kn in kernels.values():
+            kn.launches = 0
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_shuffle_fed(cfg, tcfg, mesh, stream, steps=PG_STEPS,
+                                engine_factory=lambda: faulty_elastic_engine()[0],
+                                step_fn=recording_step, init_seed=seed,
+                                pipeline_kwargs=SHUFFLE_FED_PIPELINE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {s_: kn.launches for s_, kn in kernels.items()}
+        kind = type(mesh).__name__
+        check(not res.crashed and res.steps == list(range(PG_STEPS)) and len(served) == PG_STEPS,
+              f"{kind}: steps 0..{PG_STEPS - 1} served once each: {res.steps}")
+        for s_, batch in enumerate(served):
+            want = reference_batch(stream, s_)
+            check(sorted(batch) == sorted(want) and all(
+                batch[k].dtype == torch.int32 and batch[k].is_cuda
+                and np.array_equal(batch[k].cpu().numpy(), want[k]) for k in want),
+                f"{kind}: step {s_}'s batch on the card is reference_batch's bit for bit")
+        check(reports[0] == input_spec_report(cfg, shape, mesh),
+              f"{kind}: the device batch's report is input_spec_report's: {reports[0]}")
+        check(all(np.isfinite(res.losses)), f"{kind}: finite losses {res.losses}")
+        check(launches == {s_: PG_STEPS * per_step.get(s_, 0) for s_ in kernels},
+              f"{kind}: {per_step} launches a step and no other kernel: {launches}")
+        # the run's own peak, over what an earlier run's model holds
+        return {"losses": res.losses, "step_s": secs, "median_step_s": statistics.median(secs[1:]),
+                "peak_memory_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+                "wall_s": wall,
+                "launches_per_step": {s_: c // PG_STEPS for s_, c in launches.items() if c},
+                "input_specs": reports[0]}, model.pop()
+
+    folder = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{folder}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        backend = dist.get_backend()
+        mesh = process_group_test_mesh()
+        pg, pg_model = run(mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(folder)
+    check(backend == "nccl", f"the process group's backend is nccl, not {backend}")
+    check(not dist.is_initialized(), "the process group destroyed")
+    torch.cuda.empty_cache()
+    stacked, stacked_model = run(stacked_mesh(**mesh.shape))
+    check(not dist.is_initialized(), "the stacked run made no process group")
+    # the final parameters compared on the card, bit for bit
+    differ = [n for (n, a), (_, b) in zip(pg_model.named_parameters(),
+                                          stacked_model.named_parameters())
+              if not same_bits(a.detach(), b.detach())]
+    del pg_model, stacked_model
+    same = np.array(pg["losses"]).tobytes() == np.array(stacked["losses"]).tobytes() and not differ
+    gap = max(abs(a - b) / abs(b) for a, b in zip(pg["losses"], stacked["losses"]))
+    check(same or gap <= PG_LOSS_TOL,
+          f"the process-group run's losses within {PG_LOSS_TOL} of the stacked run's: {gap}")
+    check(pg["launches_per_step"] == stacked["launches_per_step"],
+          f"the same launches a step: {pg['launches_per_step']}, {stacked['launches_per_step']}")
+    foreign = sorted(set(_foreign_modules()) - before)
+    check(not foreign, f"the phase loads no module of jax or the JAX package: {foreign[:5]}")
+    emit({"phase": "shuffle_fed_process_group", "nvidia_smi": smi, "backend": backend,
+          "world_size": 1, "mesh": mesh.shape, "arch": arch, "layers": cfg.num_layers,
+          "published_layers": get_config(arch).num_layers, "batch": stream.batch,
+          "seq": stream.seq_len, "steps": PG_STEPS, "microbatches": TRAIN_MICROBATCHES,
+          "remat": "full", "compute_dtype": "bfloat16", "shuffle": "blob", "grad_sync": "auto",
+          "clocks": "step_s, wall_s, seconds: the host's clock, each step synchronised",
+          "same_bits": same, "params_differing": differ, "max_rel_loss_gap": gap,
+          "peak_memory": "each run's peak over what was allocated before it (the process-group "
+                         "run's model, held for the comparison)",
+          "process_group": pg,
+          "stacked": stacked, "seconds": time.perf_counter() - t_phase, "ok": True})
+
+
 def host_available_gb() -> float:
     """The host's available memory (``MemAvailable``), in GB."""
     with open("/proc/meminfo") as f:
@@ -3322,7 +3476,7 @@ def params_digest(model) -> dict:
 
 
 def deepseek_v2_lite_shuffle_resume(seed: int, smi: str) -> None:
-    """Phase ``deepseek_v2_lite_shuffle_resume`` (step 12 above): the
+    """Phase ``deepseek_v2_lite_shuffle_resume`` (step 13 above): the
     training benchmark's crash lane at published widths. The shuffle-fed
     phase's run, checkpointed into the lane's store with synchronous
     uploads, crashes mid-step ``RESUME_CRASH_AT`` and resumes; the
@@ -3538,7 +3692,7 @@ def deepseek_v2_lite_shuffle_resume(seed: int, smi: str) -> None:
 
 
 def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
-    """Phase ``deepseek_v2_lite_restart`` (step 13 above): (a)'s plain
+    """Phase ``deepseek_v2_lite_restart`` (step 14 above): (a)'s plain
     step restarted from blob checkpoints by ``FaultTolerantTrainer``,
     bit for bit against the uninterrupted run; then the train launcher's
     ``--ckpt-dir`` on the card."""
@@ -3740,7 +3894,7 @@ def deepseek_v2_lite_restart(seed: int, smi: str) -> None:
 
 
 def deepseek_v2_lite_elastic(seed: int, smi: str) -> None:
-    """Phase ``deepseek_v2_lite_elastic`` (step 14 above): the parameters
+    """Phase ``deepseek_v2_lite_elastic`` (step 15 above): the parameters
     of (a)'s 3 layers saved under ``EP_MESH``'s restore plan and restored
     under ``ELASTIC_MESH``'s into a model drawn from another seed, bit for
     bit, and a prefill of each model bit for bit the same."""
@@ -3951,6 +4105,7 @@ def main(argv=None) -> int:
     rows += kernel_grads(args.seed)
     rows += deepseek_v2_lite_train(args.seed, smi)
     deepseek_v2_lite_shuffle_fed(args.seed, smi)
+    shuffle_fed_process_group(args.seed, smi)
     deepseek_v2_lite_shuffle_resume(args.seed, smi)
     deepseek_v2_lite_restart(args.seed, smi)
     deepseek_v2_lite_elastic(args.seed, smi)

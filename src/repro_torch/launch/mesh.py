@@ -11,19 +11,25 @@ The expert-parallel dispatch exchanges tensors between the ranks through
   axis of all the ranks, rank-major over the mesh's axes, so one card
   runs the whole mesh and an all-to-all is a transpose.
 * ``ProcessGroupMesh``: one rank per process of the default
-  ``torch.distributed`` process group (gloo on the CPU, NCCL on a host of
-  several cards); the leading rank axis has size 1.
+  ``torch.distributed`` process group (gloo on the CPU, NCCL on the
+  cards); the leading rank axis has size 1.
 
 ``pod_submesh`` gives the stacked mesh of one pod, the mesh without its
 pod axis: the ranks a pod-local region (``ShuffleConfig.pod_local``)
 runs its expert-parallel dispatch over.
+
+``make_test_mesh`` stacks the JAX package's test mesh;
+``process_group_test_mesh`` lays the same axes over the processes of the
+default process group (the train launcher's mesh over several
+processes).
 
 ``make_production_mesh`` describes the JAX package's production mesh
 (data 16 x model 16, or pod 2 x data 16 x model 16) as a plain ``Mesh``:
 the dry run's twin (``launch.dryrun``) reads its axes and sizes and runs
 nothing over it.
 
-Building a mesh touches no device and starts no process.
+Building a mesh touches no device and starts no process; a
+``ProcessGroupMesh`` needs the default process group initialised.
 """
 
 from __future__ import annotations
@@ -120,12 +126,31 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(("data", "model"), (16, 16))
 
 
+# the JAX package's test mesh: its axes, major to minor, for a count of
+# ranks; any other count is (data n)
+TEST_MESH_AXES = {8: {"pod": 2, "data": 2, "model": 2}, 4: {"data": 2, "model": 2}}
+
+
+def axes_of_test_mesh(devices: int) -> dict:
+    """The test mesh's axes and sizes for ``devices`` ranks (a fresh dict)."""
+    return dict(TEST_MESH_AXES.get(devices, {"data": devices}))
+
+
 def make_test_mesh(*, devices: int = 8) -> StackedMesh:
     """The JAX package's test mesh, stacked: 8 ranks -> (pod 2, data 2,
     model 2), every axis non-trivial; 4 -> (data 2, model 2); else
     (data devices)."""
-    if devices == 8:
-        return stacked_mesh(pod=2, data=2, model=2)
-    if devices == 4:
-        return stacked_mesh(data=2, model=2)
-    return stacked_mesh(data=devices)
+    return stacked_mesh(**axes_of_test_mesh(devices))
+
+
+def process_group_test_mesh() -> ProcessGroupMesh:
+    """The test mesh's axes (``axes_of_test_mesh``) over the processes of the
+    default process group, one rank a process, as the JAX launcher builds
+    ``make_test_mesh(devices=n)`` over its n devices. The group must be
+    initialised (``torch.distributed.init_process_group``)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise ValueError("process_group_test_mesh needs the default process group "
+                         "initialised (torch.distributed.init_process_group)")
+    return process_group_mesh(**axes_of_test_mesh(dist.get_world_size()))

@@ -95,10 +95,18 @@ of a group could differ in what records or in what the loss reaches (a
 pipeline stage that reads neither ``x`` nor its hops' output), the caller
 agrees on recording (``record_together``, a flag max-reduced over the
 group) and joins every recorded output to the result (``reach``).
+
+Where every process of a ``ProcessGroupMesh`` must hold the same thing
+that no collective carries (the batch each draws from its own copy of
+the input, the parameters each draws from the same seed),
+``digest64`` hashes its bytes and ``check_same`` compares the processes'
+digests in one all-gather over the mesh, raising on every process if
+any differs.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 
 import numpy as np
@@ -122,6 +130,33 @@ def for_mesh(mesh):
     raise TypeError(f"no exchange for a mesh of type {type(mesh).__name__}; "
                     f"the port runs StackedMesh and ProcessGroupMesh "
                     f"(repro_torch.launch.mesh)")
+
+
+def digest64(arrays) -> int:
+    """A signed 64-bit digest (blake2b) of ``arrays`` in order, numpy
+    arrays or tensors (copied to the host), each with its shape and
+    dtype."""
+    h = hashlib.blake2b(digest_size=8)
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            h.update(f"{tuple(a.shape)} {a.dtype};".encode())
+            a = a.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+        else:
+            a = np.ascontiguousarray(a)
+            h.update(f"{a.shape} {a.dtype};".encode())
+        h.update(a.tobytes())
+    return int.from_bytes(h.digest(), "little", signed=True)
+
+
+def check_same(ex, digest: int, device, what: str) -> None:
+    """Raise on every process of ``ex``'s mesh (a ``ProcessGroups``)
+    unless all hold the same ``digest``: one all-gather over the mesh of
+    an int64 on ``device``, the process group's device."""
+    mine = torch.tensor([[digest]], dtype=torch.int64, device=device)
+    every = ex.all_gather(mine, ex.mesh.axis_names)[0, :, 0].tolist()
+    if any(d != every[0] for d in every):
+        raise RuntimeError(f"{what} differ between the processes (digests by rank: "
+                           f"{every})")
 
 
 class _Exchange:

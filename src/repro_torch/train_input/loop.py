@@ -13,6 +13,16 @@ by ``init_model`` (a test swaps in the JAX package's through
 ``interop.params_from_jax``); a numpy batch (no mesh) goes to the
 parameters' device before the step.
 
+Over a ``ProcessGroupMesh`` (one rank a process) every process runs
+this loop on its own device: its own engine from the same factory, its
+own ``ShuffleFedInput``, which puts the global batch there and checks at
+each step that every process's batch is the same bits, and the step
+over the processes (``make_train_step(..., mesh=mesh)``), whose losses,
+parameters and moments come out the same on every process. So each
+process's caller hands it a checkpointer over that process's own store:
+each saves its whole replicated state, and a resume restores it on each
+(``BlobCheckpointer.restore`` without ``shardings``).
+
 The state saved and restored is ``interop.train_state_tree(model,
 opt)``, the JAX package's train state tree over the model's and the
 optimizer's own tensors, built anew at each save (the step returns a

@@ -215,32 +215,44 @@ class ShuffleFedInput:
 
     # -- device batches -----------------------------------------------------
     def _make_device_put(self, mesh, model_cfg, rules, device):
-        """The port's put: each array to an int32 tensor on ``device``.
+        """The port's put: each array to an int32 tensor on ``device``,
+        and ``self.shardings`` each input's ``PartitionSpec`` on the
+        mesh, as JAX's ``NamedSharding`` names it.
+
         On a ``StackedMesh`` every rank lives in this process, so the
         tensor is the global batch (the train step splits it over the
-        pods); ``self.shardings`` names each input's ``PartitionSpec``
-        on the mesh, as JAX's ``NamedSharding`` does. A
-        ``ProcessGroupMesh`` (one rank a process) is refused: its put, by
-        each process's block of the batch, is not ported
-        (``ROADMAP.md`` queue 1 item 6)."""
+        pods). On a ``ProcessGroupMesh`` (one rank a process) each
+        process puts the global batch on its own ``device`` too, where
+        JAX's devices each hold their block: the port's step takes the
+        whole batch on every process (``auto`` routes every token over
+        the processes, the blob modes cut their own pod's block), and
+        ``specs_check.validate_device_batch`` reads each process's block
+        through ``exchange.shard``. Every process runs its own copy of
+        the deterministic engine, so nothing is broadcast; at each step
+        the processes compare a 64-bit digest of the batch's bytes
+        (``exchange.digest64``) in one all-gather over the mesh, and
+        every process raises, naming the step, if any differs."""
         import torch
 
         from repro_torch.distributed.sharding import DEFAULT_RULES, batch_specs
-        from repro_torch.launch.mesh import StackedMesh
         from repro_torch.launch.specs import input_specs
         from repro_torch.models.common import ShapeConfig
+        from repro_torch.shuffle import exchange
 
         if model_cfg is None:
             raise ValueError("mesh given without model_cfg")
-        if not isinstance(mesh, StackedMesh):
-            raise ValueError(f"the shuffle-fed input puts the global batch on one "
-                             f"device for a StackedMesh, not a {type(mesh).__name__}")
         self.shape = ShapeConfig("shuffle_fed", self.stream.seq_len,
                                  self.stream.batch, "train")
         self.input_specs = input_specs(model_cfg, self.shape)
         self.shardings = batch_specs(self.input_specs,
                                      rules or DEFAULT_RULES, mesh)
+        ex = exchange.for_mesh(mesh)        # refuses a mesh that no exchange runs
 
         def put(batch):
+            if isinstance(ex, exchange.ProcessGroups):
+                # next_batch has moved past the step it serves
+                exchange.check_same(ex, exchange.digest64(
+                    [batch[k] for k in sorted(batch)]), device,
+                    f"step {self._next - 1}'s batches")
             return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         return put

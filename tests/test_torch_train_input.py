@@ -20,8 +20,9 @@ model.
 * ``fast_forward`` to a committed step gives JAX's offsets and batches,
   and its refusals (a divergent manifest, a pipeline already consumed)
   and ``commit``'s carry JAX's messages.
-* A ``ProcessGroupMesh`` is refused by name; a ``StackedMesh`` puts the
-  global batch as int32 tensors on the pipeline's device.
+* A mesh without ``model_cfg`` is refused; a ``StackedMesh`` puts the
+  global batch as int32 tensors on the pipeline's device (the put over a
+  ``ProcessGroupMesh``: ``tests/test_torch_pg_shuffle_fed.py``).
 """
 
 import dataclasses
@@ -35,7 +36,7 @@ torch = pytest.importorskip("torch")
 from repro.train_input import pipeline as jpipeline
 from repro.train_input import tokens as jtokens
 from repro_torch.launch import engine as launcher
-from repro_torch.launch.mesh import ProcessGroupMesh, make_test_mesh
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.train_input import pipeline, tokens
 
 STREAMS = {
@@ -246,13 +247,7 @@ def test_refusals_carry_jax_messages(case):
 
 # -- the put ---------------------------------------------------------------
 
-def test_a_process_group_mesh_is_refused_by_name():
-    from repro_torch.configs import get_config
-    cfg = get_config("deepseek-v2-lite-16b", smoke=True)
-    with pytest.raises(ValueError, match="ProcessGroupMesh"):
-        pipeline.ShuffleFedInput(_plain_engine("repro_torch"), _streams("test")[1], steps=1,
-                                 mesh=ProcessGroupMesh(("data",), (2,)), model_cfg=cfg,
-                                 device="cpu")
+def test_a_mesh_without_model_cfg_is_refused():
     with pytest.raises(ValueError, match="without model_cfg"):
         pipeline.ShuffleFedInput(_plain_engine("repro_torch"), _streams("test")[1], steps=1,
                                  mesh=make_test_mesh(devices=8), device="cpu")
