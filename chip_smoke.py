@@ -86,7 +86,18 @@
    kernel (its scores per head), through the ``*_bf16i`` launchers,
    y_intra within ``INTRA_BF16_TOL`` (relative max) of
    ``ssd_chunk_ref(..., intra_bf16=True)`` and the other outputs within
-   1e-4.
+   1e-4. Then phase ``flash_q_offset``: the flash kernels with a query
+   offset (query row i at position i + q_offset under the causal mask),
+   each edge case (``FLASH_OFFSET_EDGES``: suffixes, an offset off every
+   kv tile, one past Skv, non-causal, the f32 kernel) through the kernel
+   its dtype selects, within ``FLASH_TOL`` of ``flash_ref(...,
+   q_offset=)``; then ``attention_op`` with qwen2-moe-a2.7b's and
+   deepseek-v2-lite-16b's configs on the last 512 queries of 4 x 4,096
+   (q_offset 3,584; D 128 and 192), one wgmma launch each, within
+   ``FLASH_TOL`` of the plain version and of the same rows of the full
+   causal call (bitwise equality reported), timed beside SDPA with
+   ``causal_lower_right(512, 4096)``, the plain version and the bound;
+   prints its own seconds.
 6. Zamba2-2.7B at full width (54 layers, d 2560, parameters drawn on the
    card from the seed): ``make_prefill_step`` on 4 requests of 4,096
    tokens must launch the wgmma flash kernel 9 times (and no other flash
@@ -193,7 +204,9 @@
    2,048 bf16, 64 bins of 1,920, skewed keys): unpack's backward bit for
    bit, pack's bit for bit where ``order`` is a permutation and within
    one bf16 rounding of an f32 sum where each token's row repeats
-   (top-6), each backward launching the other kernel once.
+   (top-6), each backward launching the other kernel once; and flash at
+   q_offset 3,584 (the last 512 queries of 4,096, 16 heads of 128),
+   within ``GRAD_FLASH_TOL``, one wgmma launch.
 10. ``deepseek_v2_lite_train``: deepseek-v2-lite-16b at published widths
    with 3 of its 27 layers (``TRAIN_LAYERS``: the dense layer 0 and two
    MoE layers, 1.670 G f32 parameters drawn on the card), 4 x 4,096
@@ -360,7 +373,10 @@
    (``flash_attention_wide``), whose path is one call of
    ``flash_attention_op`` at that shape (``path``; its launches are
    counted from 0 over that call alone), with the ``mma.sync`` kernel's
-   time beside it (``mma_sync_ms``). Each decoder prefill adds rows with
+   time beside it (``mma_sync_ms``); and at each suffix of phase 5's
+   ``flash_q_offset`` (``flash_attention_q_offset``), whose path is one
+   ``attention_op`` call at q_offset 3,584, its launches counted from 0
+   over that call. Each decoder prefill adds rows with
    its ``path`` (``qwen2_moe_prefill``, ``deepseek_v2_lite_prefill``,
    ``gemma_2b_prefill``): flash at the prefill's shape (D 128, 192, 256
    at B 4) and the pack and unpack kernels at the MoE layer's shape
@@ -1226,21 +1242,25 @@ def f32p_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
     return {"max_abs": float(d.abs().max()), "rel_fro": float(d.norm() / want.float().norm())}
 
 
-def flash_flops(B, Sq, Skv, H, D, causal: bool = True) -> float:
+def flash_flops(B, Sq, Skv, H, D, causal: bool = True, q_offset: int = 0) -> float:
     """The two products' operations, counting only unmasked keys (all of
-    them without the causal mask)."""
-    keys = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
+    them without the causal mask; under it, row i sees
+    min(i + 1 + q_offset, Skv))."""
+    keys = sum(min(i + 1 + q_offset, Skv) for i in range(Sq)) if causal else Sq * Skv
     return 4.0 * B * H * D * keys
 
 
-def flash_item_order(B, Skv, KVH, D, causal: bool) -> dict:
+def flash_item_order(B, Skv, KVH, D, causal: bool, Sq=None, q_offset: int = 0) -> dict:
     """The item order the wgmma kernel's launcher picks by its rule
     (``launch_wgmma`` in flash_attention.cu): balanced where the K and V
-    the items read (half of them under the causal mask) fit in L2,
+    the items read (under the causal mask min(q_offset + Sq // 2, Skv) of
+    Skv keys, half of them at Sq = Skv and no offset) fit in L2,
     head-major where they do not."""
     kv_bytes = 2 * B * KVH * Skv * D * 2
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    read = kv_bytes // 2 if causal else kv_bytes
+    Sq = Skv if Sq is None else Sq
+    keys = min(q_offset + Sq // 2, Skv) if causal else Skv
+    read = kv_bytes // Skv * keys
     return {"item_order": "balanced" if read <= l2 else "head-major",
             "kv_bytes_read": read, "l2_bytes": l2}
 
@@ -1429,6 +1449,125 @@ def model_kernel_phases(seed: int) -> list:
           "ssd_intra_bf16_y_tolerance": INTRA_BF16_TOL, "ssd": ssd,
           "ssd_max_abs_err": ssd_err, "ok": True})
     return wide_rows
+
+
+# the flash kernels with a query offset (query row i at position
+# i + q_offset under the causal mask), against the plain version:
+# (B, Sq, Skv, H, KVH, D, causal, q_offset, dtype). The suffix Sq of Skv
+# (offset Skv - Sq), an offset of one, an offset off every kv tile, one
+# past Skv (every key visible), non-causal, and the f32 kernel
+FLASH_OFFSET_EDGES = [
+    (2, 200, 256, 8, 2, 80, True, 56, BF16),
+    (1, 128, 384, 8, 1, 256, True, 1, BF16),
+    (2, 256, 256, 8, 8, 64, True, 95, BF16),
+    (1, 136, 200, 4, 1, 144, True, 300, BF16),
+    (1, 200, 200, 8, 2, 128, False, 17, BF16),
+    (1, 200, 256, 8, 2, 80, True, 56, F32),
+]
+# the last FLASH_SUFFIX queries of a 4,096-token prefill at the attention
+# shapes of two configs, B 4, bf16: (config, H, KVH, D); deepseek-v2-lite's
+# MLA takes q/k head dim 192 with V padded to it
+FLASH_SUFFIX = 512
+FLASH_SUFFIX_CONFIGS = [("qwen2-moe-a2.7b", 16, 16, 128), ("deepseek-v2-lite-16b", 16, 16, 192)]
+
+
+def flash_q_offset(seed: int) -> list:
+    """The flash branch with a query offset: each edge case's kernel
+    against the plain version; then at full width, through
+    ``attention_op`` with each config, the last ``FLASH_SUFFIX`` queries
+    of a 4,096-token prefill at ``q_offset`` 3,584, its launches counted
+    from 0 over that call, held against the plain version and against the
+    same rows of the full causal call, and timed beside SDPA with a
+    lower-right causal mask (the same function; the port never calls
+    it). Returns the kernels rows of the two suffixes."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    from repro_torch.models.attention import attention_op
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    edges = []
+    for B, Sq, Skv, H, KVH, D, causal, q_offset, dtype in FLASH_OFFSET_EDGES:
+        q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Skv, KVH, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, Skv, KVH, D), generator=gen, device="cuda").to(dtype)
+        kern = flash_kernel.route(dtype, D)
+        case = [B, Sq, Skv, H, KVH, D, causal, q_offset, str(dtype)[6:]]
+        got, ran = launches_of(flash_kernel.KERNELS, lambda: flash_kernel.flash_attention_cuda(
+            q, k, v, causal=causal, q_offset=q_offset))
+        check(ran == {kn.symbol: int(kn is kern) for kn in flash_kernel.KERNELS},
+              f"flash offset case {case} ran {kern.symbol} only: {ran}")
+        cmp = flash_compare(got, flash_ref(q, k, v, causal=causal, q_offset=q_offset))
+        check(cmp["ok"], f"flash offset case {case} within FLASH_TOL: {cmp}")
+        edges.append({"case": case, "kernel": kern.symbol, **cmp})
+    del q, k, v, got
+
+    S, q_offset = PREFILL_LEN, PREFILL_LEN - FLASH_SUFFIX
+    kern = flash_kernel.FLASH_WGMMA
+    suffixes, rows = [], []
+    for name, H, KVH, D in FLASH_SUFFIX_CONFIGS:
+        cfg = get_config(name)
+        B = DECODER_PREFILL_BATCH
+        q_full = torch.randn((B, S, H, D), generator=gen, device="cuda").to(BF16)
+        k = torch.randn((B, S, KVH, D), generator=gen, device="cuda").to(BF16)
+        v = torch.randn((B, S, KVH, D), generator=gen, device="cuda").to(BF16)
+        q = q_full[:, q_offset:].contiguous()
+        # this path: attention_op once, its launches counted from 0
+        for kn in flash_kernel.KERNELS:
+            kn.launches = 0
+        got = attention_op(cfg, q, k, v, causal=True, q_offset=q_offset)
+        torch.cuda.synchronize()
+        ran = {kn.symbol: kn.launches for kn in flash_kernel.KERNELS}
+        check(ran == {kn.symbol: int(kn is kern) for kn in flash_kernel.KERNELS},
+              f"attention_op at {name}'s suffix ran {kern.symbol} once: {ran}")
+        plain = flash_compare(got, flash_ref(q, k, v, causal=True, q_offset=q_offset))
+        full_rows = flash_kernel.flash_attention_cuda(q_full, k, v, causal=True)[:, q_offset:]
+        vs_full = flash_compare(got, full_rows)
+        check(plain["ok"] and vs_full["ok"],
+              f"{name}'s suffix within FLASH_TOL of the plain version and of the full "
+              f"causal call's rows: {plain}, {vs_full}")
+        flops = flash_flops(B, FLASH_SUFFIX, S, H, D, q_offset=q_offset)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms, bound_by = bound(flops, nbytes)
+        out = torch.empty_like(q)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = causal_lower_right(FLASH_SUFFIX, S)
+        case = {"config": name, "case": [B, FLASH_SUFFIX, S, H, KVH, D, True, q_offset,
+                                         "bfloat16"],
+                "kernel": kern.symbol, "launches": ran, **plain, "vs_full_rows": vs_full,
+                "full_rows_bitwise": same_bits(got, full_rows.contiguous()),
+                **flash_item_order(B, S, KVH, D, True, FLASH_SUFFIX, q_offset),
+                "ops": flops, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+                "ms": time_ms(lambda: flash_kernel.launch(out, q, k, v, causal=True,
+                                                          q_offset=q_offset), TIMED_RUNS),
+                "plain_ms": time_ms(lambda: flash_ref(q, k, v, causal=True, q_offset=q_offset),
+                                    3, warmup=1),
+                "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask), TIMED_RUNS),
+                "library_call": "torch.nn.functional.scaled_dot_product_attention with "
+                                f"causal_lower_right({FLASH_SUFFIX}, {S})"}
+        # the timed launches rewrote out; it must be right too
+        check(flash_compare(out, got)["ok"], f"{name}'s timed suffix output")
+        suffixes.append(case)
+        rows.append({
+            "name": "flash_attention_q_offset", "config": name, "route": "cuda",
+            "symbol": kern.symbol, "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+            "path": f"attention_op at {name}'s shape, the last {FLASH_SUFFIX} queries at "
+                    f"q_offset {q_offset}", "launches": ran[kern.symbol],
+            "max_abs_err": plain["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": case["library_ms"],
+            "library_call": case["library_call"], "bytes": nbytes, "ops": flops,
+            "tflop_s": flops / case["ms"] / 1e9})
+        del q_full, q, k, v, qt, kt, vt, got, full_rows, out
+    torch.cuda.synchronize()
+    emit({"phase": "flash_q_offset", "tolerance": {str(k)[6:]: v for k, v in FLASH_TOL.items()},
+          "edges": edges, "suffixes": suffixes, "seconds": time.perf_counter() - t0,
+          "ok": True})
+    return rows
 
 
 def profile_prefill(prefill, params, tokens, phase="zamba2_prefill_profile",
@@ -2004,8 +2143,9 @@ def decoder_serve(seed: int, arch: str, phase: str, flash_row: str,
     # flash on the first attention call's q, k, v
     (q, kk, v), flash_kwargs = captured["flash"]
     causal = cfg.causal
-    check(flash_kwargs == {"causal": causal, "scale": None},
-          f"the layers call flash causal={causal} at the default scale: {flash_kwargs}")
+    check(flash_kwargs == {"causal": causal, "scale": None, "q_offset": 0},
+          f"the layers call flash causal={causal} at the default scale and no query "
+          f"offset: {flash_kwargs}")
     flash_out = flash_kernel.flash_attention_cuda(q, kk, v, causal=causal)
 
     def flash_plain():  # one batch row at a time bounds the S x S scores
@@ -2551,6 +2691,32 @@ def kernel_grads(seed: int) -> list:
         result["flash"][f"D{D}"] = {"heads": H, "kv_heads": KVH, "rel_fro": errs,
                                     "launches": launches, "backward_ms": bwd_ms}
         del q, k, v, dout, leaves, ref, got, want, out
+
+    # flash with a query offset: the last FLASH_SUFFIX queries of S 4,096
+    # at D 128, 16 heads and kv heads, the plain backward with the offset
+    B, H, KVH, D, off = 1, 16, 16, 128, PREFILL_LEN - FLASH_SUFFIX
+    q, dout = (torch.randn((B, FLASH_SUFFIX, H, D), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, PREFILL_LEN, KVH, D), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    _, got, launches = grads(
+        lambda a, b, c: flash_attention_op(a, b, c, causal=True, q_offset=off), leaves, dout)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_ref(*ref, causal=True, q_offset=off), ref, dout)
+    errs = {n: rel_fro(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    check(all(e <= GRAD_FLASH_TOL for e in errs.values()),
+          f"flash q_offset {off} gradients within {GRAD_FLASH_TOL}: {errs}")
+    check(launches == {flash_kernel.FLASH_WGMMA.symbol: 1},
+          f"flash q_offset {off}: the forward's one wgmma launch, a plain backward: {launches}")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_op(*leaves, causal=True, q_offset=off)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), 3,
+                     warmup=1)
+    result["flash"][f"D{D}_q_offset_{off}"] = {
+        "shape": [B, FLASH_SUFFIX, PREFILL_LEN, H, KVH, D], "q_offset": off, "rel_fro": errs,
+        "launches": launches, "backward_ms": bwd_ms}
+    del q, k, v, dout, leaves, ref, got, want, out
 
     # the SSD chunk at Zamba2's first Mamba2 layer (B 1, S 4,096, 80 heads
     # of 64, N 64, chunks of 256), bf16 as the layer feeds it
@@ -4092,7 +4258,8 @@ def main(argv=None) -> int:
     rows = deployment(args.seed)
     torch.cuda.empty_cache()     # the deployment's tensors went with it
     wide_rows = model_kernel_phases(args.seed)
-    rows += zamba2(args.seed) + wide_rows
+    offset_rows = flash_q_offset(args.seed)
+    rows += zamba2(args.seed) + wide_rows + offset_rows
     # each phase frees its tensors when it returns
     rows += decoder_serve(args.seed, "qwen2-moe-a2.7b", "qwen2_moe_serve",
                           "flash_attention_moe")

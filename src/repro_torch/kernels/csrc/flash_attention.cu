@@ -6,6 +6,11 @@
 // f32 scores, an online softmax over kv tiles with f32 statistics, masked
 // scores -1e30 (kpos >= Skv, and kpos > qpos when causal) with the running
 // maximum starting at -1e30, and output acc / max(l, 1e-30) in q's dtype.
+// Query row i sits at position qpos = i + q_offset (q_offset >= 0), as in
+// the jnp flash_attention (src/repro/models/flash.py) that the port's kernel
+// replaces at attention_op's call site: a suffix of Sq queries over Skv keys
+// takes q_offset = Skv - Sq. The offset moves only the causal mask and the
+// number of kv tiles a q tile reaches, never the row loaded or stored.
 // Two kernels serve the two routes, chosen by dtype (the wrapper,
 // repro_torch/kernels/flash_attention/kernel.py, picks the symbol); a third
 // is kept, off every route, as the timed comparison of the first at large D:
@@ -701,7 +706,7 @@ template <bool kMask, int KV>
 __device__ __forceinline__ void softmax_tile(float (&s)[KV / 2], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2], int row,
                                              int k0, int tq, int Skv, int causal,
-                                             float scale_log2) {
+                                             int q_offset, float scale_log2) {
   float pm[2][4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) pm[0][c] = m[0], pm[1][c] = m[1];
@@ -712,7 +717,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KV / 2], float (&m)[2],
       for (int e = 0; e < 4; ++e) {
         const int r = row + (e >> 1) * 8;
         const int c = k0 + n * 8 + 2 * tq + (e & 1);
-        if (c >= Skv || (causal && c > r)) s[4 * n + e] = kNegInf;
+        if (c >= Skv || (causal && c > r + q_offset)) s[4 * n + e] = kNegInf;
       }
     }
     pm[0][n % 4] = fmaxf(pm[0][n % 4], fmaxf(s[4 * n], s[4 * n + 1]));
@@ -782,19 +787,20 @@ __device__ __forceinline__ void issue_pv(float (&o_acc)[D / 2],
 }
 
 // The softmax of a tile, masked only where the tile crosses the causal
-// diagonal of this warpgroup's rows (first row wq0) or Skv's edge.
+// diagonal of this warpgroup's rows (first row wq0, at position
+// wq0 + q_offset) or Skv's edge.
 template <int KV>
 __device__ __forceinline__ void softmax(float (&s)[KV / 2], float (&m)[2], float (&l)[2],
                                         float (&alpha)[2], int row, int wq0, int k0, int tq,
-                                        int Skv, int causal, float scale_log2) {
+                                        int Skv, int causal, int q_offset, float scale_log2) {
   if (kProbe & 1) {
     alpha[0] = alpha[1] = 1.f;
     return;
   }
-  if (k0 + KV > Skv || (causal && k0 + KV - 1 > wq0))
-    softmax_tile<true, KV>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
+  if (k0 + KV > Skv || (causal && k0 + KV - 1 > wq0 + q_offset))
+    softmax_tile<true, KV>(s, m, l, alpha, row, k0, tq, Skv, causal, q_offset, scale_log2);
   else
-    softmax_tile<false, KV>(s, m, l, alpha, row, k0, tq, Skv, causal, scale_log2);
+    softmax_tile<false, KV>(s, m, l, alpha, row, k0, tq, Skv, causal, q_offset, scale_log2);
 }
 
 // O *= alpha, row by row: the m64nN accumulator holds rows row and row + 8
@@ -863,7 +869,8 @@ __device__ __forceinline__ int block_item(int r, int n_items, int balanced) {
 
 template <int D>
 __device__ __forceinline__ WorkItem work_item(int w, int n_qt, int H, int B, int Sq,
-                                              int Skv, int causal, int balanced) {
+                                              int Skv, int causal, int q_offset,
+                                              int balanced) {
   constexpr int kKV = kBlockKV<D>;
   WorkItem it;
   const int hb = balanced ? w % (H * B) : w / n_qt;  // head + H x batch row
@@ -871,8 +878,11 @@ __device__ __forceinline__ WorkItem work_item(int w, int n_qt, int H, int B, int
   it.h = hb % H;
   it.b = hb / H;
   it.n_kv = (Skv + kKV - 1) / kKV;
-  // causal: no kv tile starts past the item's last query row
-  if (causal) it.n_kv = min(it.n_kv, (min(it.q0 + kBlockQ, Sq) - 1) / kKV + 1);
+  // causal: no kv tile starts past the item's last query position; n_kv
+  // stays non-increasing in the order the items are taken (q0 falling), so
+  // the balanced order still takes the longest first
+  if (causal)
+    it.n_kv = min(it.n_kv, (min(it.q0 + kBlockQ, Sq) - 1 + q_offset) / kKV + 1);
   return it;
 }
 
@@ -886,7 +896,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_q_tail,
                        const __grid_constant__ CUtensorMap tm_k_tail, bf16* __restrict__ o,
-                       int B, int Sq, int Skv, int H, int KVH, int causal, float scale_log2) {
+                       int B, int Sq, int Skv, int H, int KVH, int causal, int q_offset,
+                       float scale_log2) {
   constexpr int balanced = kBal;
   using T = WgmmaTiles<D>;
   constexpr int kStages = T::kStages;
@@ -925,7 +936,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       int t = 0;  // kv tiles loaded so far, over all items
       for (int i = 0, w = block_item(0, n_items, balanced); w >= 0;
            w = block_item(++i, n_items, balanced)) {
-        const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal, balanced);
+        const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal, q_offset, balanced);
         const int kvh = it.h / (H / KVH);
         // every box of a tile, main boxes first: tile rows r0.., `rows` of them
         auto load_tile = [&](uint32_t dst, const CUtensorMap* main_map,
@@ -980,7 +991,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     int t = 0;  // kv tiles consumed so far, over all items
     for (int i = 0, w = block_item(0, n_items, balanced); w >= 0;
          w = block_item(++i, n_items, balanced)) {
-      const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal, balanced);
+      const WorkItem it = work_item<D>(w, n_qt, H, B, Sq, Skv, causal, q_offset, balanced);
       const int wq0 = it.q0 + wg * kWgRows;          // this warpgroup's first row
       const int row = wq0 + warp * 16 + g;           // this thread's rows: row, row + 8
 #pragma unroll
@@ -999,7 +1010,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(s_acc);
       mbar_arrive(k_empty(t % kStages));
       if (it.n_kv == 1) mbar_arrive(q_empty);
-      softmax<kKV>(s_acc, m, l, alpha, row, wq0, 0, tq, Skv, causal, scale_log2);
+      softmax<kKV>(s_acc, m, l, alpha, row, wq0, 0, tq, Skv, causal, q_offset, scale_log2);
       pack_p<kKV>(p, s_acc);
 
       for (int j = 1; j < it.n_kv; ++j) {
@@ -1025,7 +1036,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         probe_stamp(wg, tid, i, j, 5);
         mbar_arrive(k_empty(s));
         if (j == it.n_kv - 1) mbar_arrive(q_empty);  // Q is read for the last time
-        softmax<kKV>(s_acc, m, l, alpha, row, wq0, j * kKV, tq, Skv, causal, scale_log2);
+        softmax<kKV>(s_acc, m, l, alpha, row, wq0, j * kKV, tq, Skv, causal, q_offset,
+                    scale_log2);
         probe_stamp(wg, tid, i, j, 6);
         wgmma_wait<0>();                 // P_{j-1} V_{j-1} has landed
         fence_regs(o_acc);
@@ -1073,7 +1085,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv, int H,
-                 int KVH, int causal, float scale_log2) {
+                 int KVH, int causal, int q_offset, float scale_log2) {
   constexpr int LD = D + 8;  // padded row pitch, elements
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -1094,8 +1106,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    static_cast<long long>(kvh) * D;
 
   int n_kv = (Skv + kTile - 1) / kTile;
-  // causal: no kv tile starts past the block's last query row
-  if (causal) n_kv = min(n_kv, (min(q0 + kTile, Sq) - 1) / kTile + 1);
+  // causal: no kv tile starts past the block's last query position
+  if (causal) n_kv = min(n_kv, (min(q0 + kTile, Sq) - 1 + q_offset) / kTile + 1);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -1145,7 +1157,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int r = row_a + (e >> 1) * 8;
         const int c = k0 + n * 8 + 2 * tq + (e & 1);
-        const bool masked = c >= Skv || (causal && c > r);
+        const bool masked = c >= Skv || (causal && c > r + q_offset);
         s[n][e] = masked ? kNegInf : s[n][e] * scale_log2;
       }
       mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
@@ -1231,7 +1243,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int H,
-                     int KVH, int causal, float scale) {
+                     int KVH, int causal, int q_offset, float scale) {
   constexpr int LD = D + 1;          // odd row pitch of Q, K and V, floats
   constexpr int LP = kF32Keys + 1;   // ... of P
   constexpr int DC = D / 8;          // output columns per thread
@@ -1255,7 +1267,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     static_cast<long long>(kvh) * D;
 
   int n_kv = (Skv + kF32Keys - 1) / kF32Keys;
-  if (causal) n_kv = min(n_kv, (min(q0 + kTile, Sq) - 1) / kF32Keys + 1);
+  if (causal) n_kv = min(n_kv, (min(q0 + kTile, Sq) - 1 + q_offset) / kF32Keys + 1);
 
   // rows rg * 4 + i of the tile; keys cg + 8 * c of a kv tile and output
   // columns cg + 8 * c
@@ -1306,7 +1318,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + cg + 8 * c;
-        if (key >= Skv || (causal && key > r)) s[i][c] = kNegInf;
+        if (key >= Skv || (causal && key > r + q_offset)) s[i][c] = kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -1409,7 +1421,8 @@ bool encode_4d(EncodeTiled encode, CUtensorMap* map, const void* ptr, int batch,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-                 int H, int KVH, int causal, float scale, cudaStream_t stream) {
+                 int H, int KVH, int causal, int q_offset, float scale,
+                 cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   // maps of the 64-column boxes of q, k and v, and of the tail boxes of q
@@ -1430,14 +1443,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   // the item order (work_item), an instance each: balanced when the K and
-  // V that the items read fit in L2 (all of them, or half under the causal
-  // mask, where an item reads half of its head's on average), head-major
-  // when they do not
+  // V that the items read fit in L2, head-major when they do not. Without
+  // the causal mask an item reads all of its head's; under it, query row i
+  // reads min(i + 1 + q_offset, Skv) keys, at most min(q_offset + Sq / 2,
+  // Skv) on average over the rows (half of them at q_offset 0, Sq = Skv)
   int l2 = 0;
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device);
   if (e != cudaSuccess) return e;
   const long long kv_bytes = 2LL * B * KVH * Skv * D * static_cast<long long>(sizeof(bf16));
-  const int balanced = ((causal ? kv_bytes / 2 : kv_bytes) <= l2) != bool(kProbe & 32);
+  const long long half_rows = q_offset + Sq / 2LL;
+  const long long keys_read = causal && half_rows < Skv ? half_rows : Skv;
+  const long long read = Skv > 0 ? kv_bytes / Skv * keys_read : 0;
+  const int balanced = (read <= l2) != bool(kProbe & 32);
   auto kern = balanced ? flash_fwd_wgmma_kernel<D, true> : flash_fwd_wgmma_kernel<D, false>;
   const cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
@@ -1447,13 +1464,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   kern<<<grid, kWgmmaThreads, smem, stream>>>(
       tm[0], tm[1], tm[2], tm[3], tm[4], static_cast<bf16*>(o), B, Sq, Skv, H, KVH,
-      causal, scale_log2);
+      causal, q_offset, scale_log2);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-               int H, int KVH, int causal, float scale, cudaStream_t stream) {
+               int H, int KVH, int causal, int q_offset, float scale,
+               cudaStream_t stream) {
   const size_t smem = 3 * kTile * (D + 8) * sizeof(bf16);
   const cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
@@ -1461,37 +1479,40 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   flash_fwd_mma_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Skv, H, KVH, causal, scale_log2);
+      static_cast<bf16*>(o), Sq, Skv, H, KVH, causal, q_offset, scale_log2);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-               int H, int KVH, int causal, float scale, cudaStream_t stream) {
+               int H, int KVH, int causal, int q_offset, float scale,
+               cudaStream_t stream) {
   const size_t smem = ((kTile + 2 * kF32Keys) * (D + 1) + kTile * (kF32Keys + 1)) * sizeof(float);
   const cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kTile - 1) / kTile, H, B);
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Skv, H, KVH, causal, scale);
+      static_cast<float*>(o), Sq, Skv, H, KVH, causal, q_offset, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Every launcher: q (B, Sq, H, D), k and v (B, Skv, KVH, D), o (B, Sq, H, D),
-// all contiguous and of the launcher's dtype; H a multiple of KVH; scale
-// 1/sqrt(D). A head dim the launcher has no instance for returns
-// cudaErrorInvalidValue.
+// all contiguous and of the launcher's dtype; H a multiple of KVH; q_offset
+// >= 0 with Sq + q_offset < 2^31 (the position of q's row 0 under the causal
+// mask); scale 1/sqrt(D). A head dim the launcher has no instance for
+// returns cudaErrorInvalidValue.
 #define FLASH_CASE(launcher, d) \
   case d:                       \
-    return launcher<d>(q, k, v, o, B, Sq, Skv, H, KVH, causal, scale, stream);
+    return launcher<d>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, stream);
 
 // bf16, D a multiple of 16 in [16, 256]; q, k, v 16-byte aligned (TMA).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                                          int B, int Sq, int Skv, int H, int KVH, int D,
-                                         int causal, float scale, cudaStream_t stream) {
+                                         int causal, int q_offset, float scale,
+                                         cudaStream_t stream) {
   switch (D) {
     FLASH_CASE(launch_wgmma, 16) FLASH_CASE(launch_wgmma, 32) FLASH_CASE(launch_wgmma, 48)
     FLASH_CASE(launch_wgmma, 64) FLASH_CASE(launch_wgmma, 80) FLASH_CASE(launch_wgmma, 96)
@@ -1507,7 +1528,7 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
 // bf16, D a multiple of 16 in [144, 256]; no route takes it.
 extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void* v, void* o,
                                        int B, int Sq, int Skv, int H, int KVH, int D, int causal,
-                                       float scale, cudaStream_t stream) {
+                                       int q_offset, float scale, cudaStream_t stream) {
   switch (D) {
     FLASH_CASE(launch_mma, 144) FLASH_CASE(launch_mma, 160) FLASH_CASE(launch_mma, 176)
     FLASH_CASE(launch_mma, 192) FLASH_CASE(launch_mma, 208) FLASH_CASE(launch_mma, 224)
@@ -1520,7 +1541,7 @@ extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void*
 // f32, D a multiple of 16 in [16, 256].
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                        int B, int Sq, int Skv, int H, int KVH, int D, int causal,
-                                       float scale, cudaStream_t stream) {
+                                       int q_offset, float scale, cudaStream_t stream) {
   switch (D) {
     FLASH_CASE(launch_f32, 16) FLASH_CASE(launch_f32, 32) FLASH_CASE(launch_f32, 48)
     FLASH_CASE(launch_f32, 64) FLASH_CASE(launch_f32, 80) FLASH_CASE(launch_f32, 96)

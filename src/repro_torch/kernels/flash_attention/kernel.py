@@ -21,10 +21,14 @@ dtype picks one of the first two (``route``):
   (``launch(..., kernel=FLASH_MMA)``).
 
 Every kernel reads kv-head ``h // (H // KVH)`` (no repeat) and keeps the
-softmax statistics in f32. The head dim is a multiple of 16 up to 256.
-The scores are scaled by ``scale``, 1/sqrt(D) unless the caller gives
-another (``models.attention.attention_op`` pads the head dim to a multiple
-of 16 and passes the scale of the true one).
+softmax statistics in f32. Under the causal mask query row i sits at
+position ``i + q_offset`` and sees key j where ``j <= i + q_offset``, as in
+the JAX package's jnp ``flash_attention(q_offset=)``; the offset moves the
+mask and the kv tiles a q tile reaches, never the rows loaded or stored.
+The head dim is a multiple of 16 up to 256. The scores are scaled by
+``scale``, 1/sqrt(D) unless the caller gives another
+(``models.attention.attention_op`` pads the head dim to a multiple of 16
+and passes the scale of the true one).
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from repro_torch.kernels._checks import (GRID_YZ_MAX, check_attention,
 #: the kernels' dtypes, those of ``flash_attention_pallas``
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
-_ARGS = [_build.P] * 4 + [_build.I32] * 7 + [_build.F32]
+_ARGS = [_build.P] * 4 + [_build.I32] * 8 + [_build.F32]
 FLASH_WGMMA = _build.Kernel("flash_attention", "flash_attention_fwd_wgmma", _ARGS)
 FLASH_MMA = _build.Kernel("flash_attention", "flash_attention_fwd_mma", _ARGS)
 FLASH_F32 = _build.Kernel("flash_attention", "flash_attention_fwd_f32", _ARGS)
@@ -59,26 +63,38 @@ def route(dtype: torch.dtype, head_dim: int) -> _build.Kernel:
     return FLASH_WGMMA
 
 
+def check_q_offset(q_offset, Sq: int) -> None:
+    """``q_offset`` must be a non-negative Python int with ``Sq + q_offset``
+    below 2**31 (the kernels add it to int32 row indices)."""
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
+    if Sq + q_offset >= 2 ** 31:
+        raise ValueError(f"Sq + q_offset must be below 2**31, got Sq {Sq} + "
+                         f"q_offset {q_offset}")
+
+
 def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor, *, causal: bool, scale: Optional[float] = None,
-           kernel: Optional[_build.Kernel] = None) -> None:
+           q_offset: int = 0, kernel: Optional[_build.Kernel] = None) -> None:
     """Launch ``kernel`` (default: the routed one) into ``out`` without
-    checks: only for tensors that ``flash_attention_cuda`` has accepted,
-    and of the dtype and head dim the kernel is built for."""
+    checks: only for tensors and an offset that ``flash_attention_cuda``
+    has accepted, and of the dtype and head dim the kernel is built for."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     kernel = route(q.dtype, D) if kernel is None else kernel
     kernel(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           B, Sq, Skv, H, KVH, D, int(causal),
+           B, Sq, Skv, H, KVH, D, int(causal), q_offset,
            1.0 / math.sqrt(D) if scale is None else scale)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, scale: Optional[float] = None
-                         ) -> torch.Tensor:
+                         *, causal: bool = True, scale: Optional[float] = None,
+                         q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, KVH, D), all bf16 or all f32, on
-    the card -> (B, Sq, H, D) in their dtype."""
+    the card -> (B, Sq, H, D) in their dtype. ``q_offset``: the position
+    of q's row 0 under the causal mask."""
     check_attention(q, k, v, KERNEL_DTYPES)
+    check_q_offset(q_offset, q.shape[1])
     require_cuda(q=q, k=k, v=v)
     if q.shape[0] > GRID_YZ_MAX or q.shape[2] > GRID_YZ_MAX:
         raise ValueError(f"batch and heads of q {tuple(q.shape)} must be at "
@@ -87,5 +103,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must start on 16-byte boundaries "
                          "(the kernels copy rows in 16-byte pieces)")
     out = torch.empty_like(q)
-    launch(out, q, k, v, causal=causal, scale=scale)
+    launch(out, q, k, v, causal=causal, scale=scale, q_offset=q_offset)
     return out

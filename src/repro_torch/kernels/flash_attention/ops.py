@@ -18,26 +18,30 @@ import torch
 
 from repro_torch.kernels._checks import check_attention
 from repro_torch.kernels.flash_attention.kernel import (KERNEL_DTYPES,
+                                                       check_q_offset,
                                                        flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import flash_ref
 
 
-def attention_rows(q, k, v, causal: bool, scale: Optional[float]) -> torch.Tensor:
+def attention_rows(q, k, v, causal: bool, scale: Optional[float],
+                   q_offset: int = 0) -> torch.Tensor:
     """The attention where its tensors lie, outside autograd."""
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                    q_offset=q_offset)
     check_attention(q, k, v, KERNEL_DTYPES)
-    return flash_ref(q, k, v, causal=causal, scale=scale)
+    check_q_offset(q_offset, q.shape[1])
+    return flash_ref(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
 
 
 class FlashAttention(torch.autograd.Function):
     """``attention_rows`` with ``models.flash.flash_bwd`` as its backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out = attention_rows(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, q_offset):
+        out = attention_rows(q, k, v, causal, scale, q_offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.q_offset = causal, scale, q_offset
         return out
 
     @staticmethod
@@ -45,13 +49,16 @@ class FlashAttention(torch.autograd.Function):
         from repro_torch.models.flash import flash_bwd
 
         q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, dout, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_bwd(q, k, v, out, dout, causal=ctx.causal, scale=ctx.scale,
+                               q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       *, causal: bool = True, scale: Optional[float] = None
-                       ) -> torch.Tensor:
+                       *, causal: bool = True, scale: Optional[float] = None,
+                       q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> (B, Sq, H, D) in q's
-    dtype. The scores are scaled by ``scale``, 1/sqrt(D) unless given."""
-    return FlashAttention.apply(q, k, v, causal, scale)
+    dtype. The scores are scaled by ``scale``, 1/sqrt(D) unless given.
+    Under ``causal`` query row i sits at position ``i + q_offset``
+    (``q_offset`` >= 0), as in the JAX package's ``flash_attention``."""
+    return FlashAttention.apply(q, k, v, causal, scale, q_offset)

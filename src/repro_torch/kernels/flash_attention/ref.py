@@ -66,16 +66,18 @@ def _weighted_sum(probs, v, q):
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
+              causal: bool = True, scale: Optional[float] = None,
+              q_offset: int = 0) -> torch.Tensor:
     """q (B,Sq,H,D); k,v (B,Skv,KVH,D) -> (B,Sq,H,D)."""
-    return dense_attention(q, k, v, causal=causal, scale=scale)
+    return dense_attention(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
 
 
 def flash_ref_f32p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = True, scale: Optional[float] = None
-                   ) -> torch.Tensor:
+                   causal: bool = True, scale: Optional[float] = None,
+                   q_offset: int = 0) -> torch.Tensor:
     """``flash_ref`` without rounding the probabilities to v's dtype: P and
     V enter the second product in f32, as in ``repro.models.flash`` (K and
     V cast to f32, ``p`` f32) and ``flash_attention_pallas``. The output
     has q's dtype."""
-    return _weighted_sum(_probs(q, k, causal=causal, scale=scale), v, q)
+    return _weighted_sum(_probs(q, k, causal=causal, q_offset=q_offset, scale=scale),
+                         v, q)

@@ -28,26 +28,26 @@ def attention_op(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, *, causal: bool, q_offset: int = 0,
                  kv_len=None) -> torch.Tensor:
     """Dense attention when ``kv_len`` is given or
-    ``max(Sq, Skv) <= cfg.flash_min_seq``, else the flash op. The flash
-    kernel has no query offset, so the flash branch refuses one. It takes
-    head dims that are multiples of 16, so another head dim D is zero-padded
-    to the next one (zeros add nothing to q . k, and V's zero columns are
-    sliced off) and the scale stays 1/sqrt(D), as the JAX flash branch
-    computes it for any D."""
+    ``max(Sq, Skv) <= cfg.flash_min_seq``, else the flash op. Under
+    ``causal`` query row i sits at position ``i + q_offset``; a negative
+    offset is refused on both branches. The flash op takes head dims that
+    are multiples of 16, so another head dim D is zero-padded to the next
+    one (zeros add nothing to q . k, and V's zero columns are sliced off)
+    and the scale stays 1/sqrt(D), as the JAX flash branch computes it for
+    any D."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset!r}")
     Sq, Skv = q.shape[1], k.shape[1]
     if kv_len is not None or max(Sq, Skv) <= cfg.flash_min_seq:
         return dense_attention(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len)
-    if q_offset != 0:
-        raise ValueError(f"the flash branch (max(Sq, Skv) = {max(Sq, Skv)} "
-                         f"> flash_min_seq {cfg.flash_min_seq}) takes no "
-                         f"query offset, got q_offset={q_offset!r}")
     D = q.shape[-1]
     pad = (-D) % 16
     if pad == 0:
-        return flash_attention_op(q, k, v, causal=causal)
+        return flash_attention_op(q, k, v, causal=causal, q_offset=q_offset)
     q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
-    out = flash_attention_op(q, k, v, causal=causal, scale=1.0 / math.sqrt(D))
+    out = flash_attention_op(q, k, v, causal=causal, scale=1.0 / math.sqrt(D),
+                             q_offset=q_offset)
     return out[..., :D]
 
 

@@ -7,7 +7,8 @@ q runs in blocks of ``Q_CHUNK`` rows and k, v in blocks of ``KV_CHUNK``,
 all in f32. Grouped-query heads read kv-head ``h // G`` (q is viewed as
 (B, S, KVH, G, D)), so dk and dv sum the G heads of each kv head, as the
 JAX backward folds them back. Blocks that the causal mask hides wholly
-are skipped: every probability in them is exactly 0.
+are skipped: every probability in them is exactly 0. Under the mask query
+row i sits at position ``i + q_offset``, as in JAX's ``_flash_bwd``.
 
 The JAX backward reads the log-sum-exp that its forward saved. The port's
 forward is the CUDA kernel (or its plain version on the CPU), which does
@@ -29,7 +30,8 @@ Q_CHUNK, KV_CHUNK = 512, 1024
 
 def _scores(qb, kb, scale, q0, k0, causal):
     """f32 scores (B, KVH, G, qc, kc) of a q block against a k block, the
-    causal mask applied (q0, k0: the blocks' first positions)."""
+    causal mask applied (q0, k0: the blocks' first positions, q0 with the
+    query offset)."""
     s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
     if causal and k0 + kb.shape[1] - 1 > q0:
         qpos = torch.arange(q0, q0 + qb.shape[1], device=qb.device)
@@ -39,7 +41,8 @@ def _scores(qb, kb, scale, q0, k0, causal):
 
 
 def _kv_blocks(q0: int, qn: int, Skv: int, causal: bool, kv_chunk: int):
-    """The first positions of the kv blocks a q block [q0, q0 + qn) sees."""
+    """The first positions of the kv blocks a q block at positions
+    [q0, q0 + qn) sees."""
     end = min(Skv, q0 + qn) if causal else Skv
     return range(0, end, kv_chunk)
 
@@ -51,7 +54,7 @@ def _grouped(q: torch.Tensor, kvh: int) -> torch.Tensor:
 
 def flash_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
               scale: Optional[float] = None, q_chunk: int = Q_CHUNK,
-              kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+              kv_chunk: int = KV_CHUNK, q_offset: int = 0) -> torch.Tensor:
     """The softmax's log-sum-exp of every q row, (B, KVH, G, Sq) in f32."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
@@ -62,8 +65,8 @@ def flash_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
         qb = qg[:, q0:q0 + q_chunk]
         m = qb.new_full((B, KVH, H // KVH, qb.shape[1]), NEG_INF)
         l = torch.zeros_like(m)
-        for k0 in _kv_blocks(q0, qb.shape[1], Skv, causal, kv_chunk):
-            s = _scores(qb, kf[:, k0:k0 + kv_chunk], scale, q0, k0, causal)
+        for k0 in _kv_blocks(q0 + q_offset, qb.shape[1], Skv, causal, kv_chunk):
+            s = _scores(qb, kf[:, k0:k0 + kv_chunk], scale, q0 + q_offset, k0, causal)
             m_new = torch.maximum(m, s.amax(dim=-1))
             l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(dim=-1)
             m = m_new
@@ -74,15 +77,16 @@ def flash_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, dout: torch.Tensor, *, causal: bool,
               scale: Optional[float] = None, lse: Optional[torch.Tensor] = None,
-              q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK):
+              q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK, q_offset: int = 0):
     """(dq, dk, dv) of attention(q, k, v) -> out against ``dout``, each in
-    its input's dtype. q, out, dout (B, Sq, H, D); k, v (B, Skv, KVH, D)."""
+    its input's dtype. q, out, dout (B, Sq, H, D); k, v (B, Skv, KVH, D);
+    q's row i at position ``i + q_offset`` under the causal mask."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     if lse is None:
         lse = flash_lse(q, k, causal=causal, scale=scale, q_chunk=q_chunk,
-                        kv_chunk=kv_chunk)
+                        kv_chunk=kv_chunk, q_offset=q_offset)
     qg, dog = _grouped(q, KVH), _grouped(dout, KVH)
     kf, vf = k.float(), v.float()
     # D_i = rowsum(dout * out), (B, KVH, G, Sq)
@@ -94,9 +98,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qb, dob = qg[:, q0:q0 + q_chunk], dog[:, q0:q0 + q_chunk]
         lse_b = lse[..., q0:q0 + q_chunk, None]
         delta_b = delta[..., q0:q0 + q_chunk, None]
-        for k0 in _kv_blocks(q0, qb.shape[1], Skv, causal, kv_chunk):
+        for k0 in _kv_blocks(q0 + q_offset, qb.shape[1], Skv, causal, kv_chunk):
             kb, vb = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
-            p = torch.exp(_scores(qb, kb, scale, q0, k0, causal) - lse_b)
+            p = torch.exp(_scores(qb, kb, scale, q0 + q_offset, k0, causal) - lse_b)
             dv[:, k0:k0 + kv_chunk] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
             dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
             ds = p * (dp - delta_b) * scale

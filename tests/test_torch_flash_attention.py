@@ -2,8 +2,8 @@
 and public op against ``flash_attention_pallas`` in interpret mode and
 the JAX ``flash_ref``, the f32-probability plain version against the JAX
 flash and the Pallas kernel, dense attention with a query offset and a kv
-length, and the dense/flash dispatch of ``attention_op`` (head dims off a
-multiple of 16 included). Inputs are made
+length, and the dense/flash dispatch of ``attention_op`` (a query offset
+and head dims off a multiple of 16 included). Inputs are made
 with numpy from a seed. The kernel itself is held against the plain
 version on the card (``cuda`` marker; skips elsewhere):
 
@@ -103,9 +103,9 @@ def test_attention_op_takes_flash_above_flash_min_seq(monkeypatch):
                       flash_min_seq=16)
     calls = []
 
-    def spy(q, k, v, *, causal):
+    def spy(q, k, v, *, causal, q_offset=0):
         calls.append(q.shape[1])
-        return flash_ref(q, k, v, causal=causal)
+        return flash_ref(q, k, v, causal=causal, q_offset=q_offset)
 
     monkeypatch.setattr(attention, "flash_attention_op", spy)
     q, k, v = to_torch(_qkv(1, 32, 4, 2, 16, "float32"), device="cpu")
@@ -121,8 +121,12 @@ def test_attention_op_takes_flash_above_flash_min_seq(monkeypatch):
     # with a kv length the dense branch runs at any length
     attention.attention_op(cfg, q, k, v, causal=False, kv_len=20)
     assert calls == [32]
-    with pytest.raises(ValueError, match="q_offset"):
-        attention.attention_op(cfg, q, k, v, causal=True, q_offset=3)
+    # the flash branch takes a query offset, as JAX's does
+    got = attention.attention_op(cfg, q, k, v, causal=True, q_offset=3)
+    want = jattn.attention_op(jcfg, *(jnp.asarray(to_numpy(t)) for t in (q, k, v)),
+                              causal=True, q_offset=3)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=2e-5)
+    assert calls == [32, 32]
 
 
 @pytest.mark.parametrize("B,S,H,KVH,D,causal", [
@@ -155,9 +159,9 @@ def test_attention_op_flash_branch_takes_head_dims_off_16(monkeypatch, D, dtype)
               num_kv_heads=2, d_ff=8, vocab_size=8, flash_min_seq=16)
     seen = []
 
-    def spy(q, k, v, *, causal, scale=None):
+    def spy(q, k, v, *, causal, scale=None, q_offset=0):
         seen.append((q.shape[-1], scale))
-        return flash_attention_op(q, k, v, causal=causal, scale=scale)
+        return flash_attention_op(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
 
     monkeypatch.setattr(attention, "flash_attention_op", spy)
     q, k, v = _qkv(2, 40, 4, 2, D, dtype)
@@ -212,21 +216,21 @@ def test_flash_kernel_matches_plain_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, cau
     _check_on_card(q, k, v, causal, flash_kernel.route(dtype, D))
 
 
-def _check_on_card(q, k, v, causal, kernel, direct=False):
+def _check_on_card(q, k, v, causal, kernel, direct=False, q_offset=0):
     """One call of the kernel wrapper (or, ``direct``, of ``kernel`` itself
     through ``launch``): it must launch ``kernel`` once and agree with the
     plain version within ``CARD_TOL``."""
     counts = {kern.symbol: kern.launches for kern in flash_kernel.KERNELS}
     if direct:
         got = torch.empty_like(q)
-        flash_kernel.launch(got, q, k, v, causal=causal, kernel=kernel)
+        flash_kernel.launch(got, q, k, v, causal=causal, q_offset=q_offset, kernel=kernel)
     else:
-        got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
+        got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     counts = {kern.symbol: kern.launches - counts[kern.symbol]
               for kern in flash_kernel.KERNELS}
     assert counts == {kern.symbol: int(kern is kernel) for kern in flash_kernel.KERNELS}
-    want = flash_ref(q, k, v, causal=causal)
+    want = flash_ref(q, k, v, causal=causal, q_offset=q_offset)
     assert got.dtype == q.dtype and got.shape == q.shape
     atol, rtol, rel_fro = CARD_TOL[q.dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -303,6 +307,27 @@ def test_wgmma_flash_kernel_head_major_order_on_card(cuda_gen, B, S, H, KVH, D, 
     read = 2 * k.numel() * k.element_size() // (2 if causal else 1)
     assert read > torch.cuda.get_device_properties(0).L2_cache_size
     _check_on_card(q, k, v, causal, flash_kernel.FLASH_WGMMA)
+
+
+# a query offset (row i at position i + q_offset under the causal mask):
+# the suffix Sq of Skv, an offset off every kv tile, one past Skv (every key
+# visible), non-causal, on the routed kernels and the mma.sync one
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,D,causal,q_offset,dtype,kernel", [
+    (2, 200, 256, 8, 2, 80, True, 56, torch.bfloat16, "FLASH_WGMMA"),
+    (2, 256, 256, 8, 8, 64, True, 95, torch.bfloat16, "FLASH_WGMMA"),
+    (1, 136, 200, 4, 1, 144, True, 300, torch.bfloat16, "FLASH_WGMMA"),
+    (1, 200, 200, 8, 2, 128, False, 17, torch.bfloat16, "FLASH_WGMMA"),
+    (1, 200, 256, 8, 2, 80, True, 56, torch.float32, "FLASH_F32"),
+    (1, 100, 300, 4, 2, 192, True, 131, torch.bfloat16, "FLASH_MMA"),
+])
+def test_flash_kernel_takes_q_offset_on_card(cuda_gen, B, Sq, Skv, H, KVH, D, causal,
+                                             q_offset, dtype, kernel):
+    q = torch.randn((B, Sq, H, D), generator=cuda_gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KVH, D), generator=cuda_gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KVH, D), generator=cuda_gen, device="cuda").to(dtype)
+    _check_on_card(q, k, v, causal, getattr(flash_kernel, kernel),
+                   direct=kernel == "FLASH_MMA", q_offset=q_offset)
 
 
 # the mma.sync kernel, which no route takes any more, launched directly

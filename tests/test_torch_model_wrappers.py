@@ -67,8 +67,8 @@ BAD_CALLS = {
     "q-not-contiguous": (
         lambda: flash_attention_op(*_with(_qkv(), 0, _qkv()[0].transpose(1, 2))),
         "contiguous"),
-    "flash-branch-q-offset": (
-        lambda: attention.attention_op(_flash_cfg(), *_qkv(S=8), causal=True, q_offset=2),
+    "flash-branch-negative-q-offset": (
+        lambda: attention.attention_op(_flash_cfg(), *_qkv(S=8), causal=True, q_offset=-2),
         "q_offset"),
     # f32 passes the dtype check (the kernel has an f32 instance) and is
     # refused only for lying on the CPU

@@ -30,7 +30,9 @@ printed.
 
 Each ``--compare NAME=SOURCE`` builds another version of the source as it
 is (for example an earlier commit's, unpacked with ``git show``) and times
-it as ``NAME``. Every build's ``flash_attention_fwd_wgmma`` is timed with
+it as ``NAME``, with its launcher's arguments (an earlier source's
+launcher has no ``q_offset``; this one's is passed 0), and reports whether
+its output equals the ``kernel`` build's bit for bit. Every build's ``flash_attention_fwd_wgmma`` is timed with
 ``chip_smoke.time_ms`` (median of ``--runs``) at the shapes of each
 ``--shape``, beside ``scaled_dot_product_attention`` on the same inputs:
 ``zamba2`` (the default) is Zamba2-2.7B's prefill shape (B 4, S 4096, 32
@@ -144,10 +146,12 @@ def emit_ptxas(log: str) -> None:
             entry = None
 
 
-def launcher(lib, symbol="flash_attention_fwd_wgmma"):
+def launcher(lib, symbol="flash_attention_fwd_wgmma", q_offset=True):
+    """The launcher's C function, which takes ``q_offset`` after ``causal``
+    unless the build's source predates it."""
     fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                                ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (8 if q_offset else 7)
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -162,6 +166,7 @@ def main(argv=None) -> int:
                     help="another flash_attention.cu to build and time as NAME")
     args = ap.parse_args(argv)
     compare = dict(c.split("=", 1) for c in args.compare)
+    no_offset = {n for n, src in compare.items() if "q_offset" not in Path(src).read_text()}
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device; this probe runs on the GPU only",
               file=sys.stderr)
@@ -204,11 +209,12 @@ def main(argv=None) -> int:
         if D > 128:
             runs.append(("mma_sync", libs["kernel"], "flash_attention_fwd_mma"))
         for name, lib, symbol in runs:
-            fn = launcher(lib, symbol)
+            fn = launcher(lib, symbol, q_offset=name not in no_offset)
+            offset = () if name in no_offset else (0,)
 
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S,
-                         H, KVH, D, int(causal), 1.0 / math.sqrt(D), stream)
+                         H, KVH, D, int(causal), *offset, 1.0 / math.sqrt(D), stream)
                 if err:
                     raise RuntimeError(f"{name} probe: CUDA error {err}")
 
@@ -218,6 +224,10 @@ def main(argv=None) -> int:
                 got = flash_compare(out, want)
                 row[f"{name}_check"] = got
                 ok = ok and got["ok"]
+                if name == "kernel":
+                    kernel_out = out.clone()
+                elif name in compare:
+                    row[f"{name}_bitwise_vs_kernel"] = torch.equal(out, kernel_out)
         emit(row)
         del q, k, v, out, want, qt, kt, vt
     # the trace: a non-causal row at the first shape's head dim
@@ -226,7 +236,7 @@ def main(argv=None) -> int:
     out = torch.empty_like(q)
     fn = launcher(libs["trace"])
     for _ in range(3):
-        fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S, H, KVH, D, 0,
+        fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S, H, KVH, D, 0, 0,
            1.0 / math.sqrt(D), stream)
     torch.cuda.synchronize()
     n = 2 * TRACE_TILES * TRACE_STAMPS
